@@ -6,22 +6,30 @@ Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch / CUDA / nvcc versions and the card's name and power
      limit (``nvidia-smi``); exits 1 without a CUDA card.
   2. build: compiles every kernel under sceneverse_tpu_torch/csrc with nvcc
-     for sm_90a (cached in build/kernels/).
+     for sm_90a, one nvcc per source, all started together (cached in
+     build/kernels/).
   3. kernels: each hand-written kernel against its plain PyTorch twin on the
-     card at the GPS pretrain shapes, in f32 and bf16 (error and CUDA-event
-     times, kernel vs plain).
-  4. slice: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
+     card at the GPS pretrain shapes (f32 and bf16 where the path has both),
+     with CUDA-event times of kernel, twin and, where one PyTorch call
+     computes the same function, that call (``library_ms``: SDPA forward and
+     backward for the MHA kernels; timed here, never called by the port),
+     and the least time the card could take (``bound_ms``).
+  4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
      (768-d, 80 objects x 1024 points, 50 + 300 tokens, batch 32): train
-     steps, val and test eval. Launch counters are reset just before and
-     read just after; every kernel of the path must have launched.
+     steps, val and test eval, once with the frozen PointNet++ and once
+     unfrozen (``model.vision.args.freeze=False``: trainable PointNet++,
+     train-mode BatchNorm). Launch counters are reset just before each and
+     read just after; every kernel of each path must have launched; the
+     unfrozen run must move the PointNet++ weights and BatchNorm statistics.
   5. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
-The device-time breakdown of the same slice is ``profile_torch.py``.
+The device-time breakdown of the same slices is ``profile_torch.py``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -49,10 +57,25 @@ SLICE_ARGS = [
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 # SA: bf16 weights and activations on both sides (see ops/sa_forward.py)
 SA_TOL = 1e-2
+# ball_group: exact mode gathers and subtracts like its twin (0); fast mode
+# rounds the gathered values to bf16 on both sides, at most one bf16 step
+BG_TOL = {"exact": 0.0, "fast": 2.0 ** -8}
+# kernels of each slice's path
+PATHS = {
+    "frozen": ([], ("fps", "sa_group_mlp_pool", "mha_fwd", "mha_bwd")),
+    "unfrozen": (["model.vision.args.freeze=False"],
+                 ("fps", "ball_group", "mha_fwd", "mha_bwd")),
+}
+# H100 SXM: HBM bytes/s and peak FLOP/s by operand type (CUDA-core f32,
+# dense bf16 tensor cores), from the H100 SXM datasheet
+HBM_RATE = 3.35e12
+PEAK = {"f32": 67e12, "bf16": 989e12}
 
 SOURCES = {
     "fps": ("sceneverse_tpu_torch/csrc/sa_kernels.cu",
             "sceneverse_tpu/ops/pallas/sa_forward.py:229"),
+    "ball_group": ("sceneverse_tpu_torch/csrc/sample_group.cu",
+                   "sceneverse_tpu/ops/pallas/sample_group.py:39"),
     "sa_group_mlp_pool": ("sceneverse_tpu_torch/csrc/sa_kernels.cu",
                           "sceneverse_tpu/ops/pallas/sa_forward.py:353"),
     "mha_fwd": ("sceneverse_tpu_torch/csrc/mha_kernels.cu",
@@ -133,21 +156,56 @@ def _err(got, want):
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
+def bound(nbytes, flops, dtype):
+    """(least ms the card could take, which of the two binds): each input
+    read once and each output written once at HBM rate, against the
+    operations at the peak rate of their type."""
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_ops = flops / PEAK[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 class Table:
     def __init__(self):
         self.rows = {}
 
-    def add(self, name, shape, dtype, err, scale, ms, plain_ms, tol):
+    def add(self, name, shape, dtype, err, scale, ms, plain_ms, tol, bnd,
+            library_ms=None):
         rel = err / max(scale, 1e-30)
-        log(f"[kernel] {name:18s} {shape:34s} {dtype:5s} max_abs_err={err:.3e} "
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        log(f"[kernel] {name:18s} {shape:34s} {dtype:9s} max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} (tol {tol:g}, max|plain| {scale:.3g}) "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
         if not (rel <= tol and math.isfinite(rel) and scale > 0):
             raise AssertionError(f"{name} {shape} {dtype}: rel err {rel} > {tol}")
         r = self.rows.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["shapes"].append({"shape": shape, "dtype": dtype, "max_abs_err": err,
-                            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms})
+                            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bnd[0], "bound_by": bnd[1],
+                            "library_ms": library_ms})
+
+
+def ball_counts(xyz, centers, radius):
+    """(G, m) in-ball point counts, strict d2 < r^2 as the kernels test."""
+    import torch
+
+    from sceneverse_tpu_torch.ops.pointops import _sq3
+
+    d = xyz[:, None, :, :] - centers[:, :, None, :]
+    d2 = _sq3(d[..., 0], d[..., 1], d[..., 2])
+    return (d2 < torch.tensor(radius * radius, dtype=torch.float32)).sum(-1)
+
+
+def fps_bound(G, N, m):
+    # read xyz, write centers + indices; per step and point: 3 sub, 3 mul,
+    # 2 add of the distance (the min and the argmax are not counted)
+    return bound(G * N * 12 + G * m * 16, 8 * (m - 1) * G * N, "f32")
 
 
 def phase_sa(table):
@@ -175,7 +233,8 @@ def phase_sa(table):
             raise AssertionError(f"fps {tag}: {mism} indices differ")
         table.add("fps", tag, "f32", *_err(got_xyz, want_xyz),
                   cuda_ms(lambda: sa.fps(xyz, m)),
-                  cuda_ms(lambda: sa.fps_plain(xyz, m)), 0.0)
+                  cuda_ms(lambda: sa.fps_plain(xyz, m)), 0.0,
+                  fps_bound(G, N, m))
         ws = []
         for cin, h in zip(spec[:-1], spec[1:]):
             ws.append(torch.randn((h, cin), generator=g) / math.sqrt(cin))
@@ -188,19 +247,77 @@ def phase_sa(table):
             got = sa.sa_group_mlp_pool(pts, ctr, *ops, radius=r, nsample=ns)
             want = sa.sa_group_mlp_pool_plain(pts, ctr, *ops, radius=r,
                                               nsample=ns)
+            # the MLP runs once per distinct (center, in-ball point) pair,
+            # an empty ball once on point 0; bf16 operands
+            cnt = ball_counts(xyz, ctr, r).clamp_min(1)
+            pairs = int((cnt if ns >= N else cnt.clamp_max(ns)).sum())
+            flops = 2 * pairs * sum(a * b for a, b in zip(spec[:-1], spec[1:]))
+            bnd = bound(nbytes(pts, ctr, want, *ops), flops, "bf16")
             table.add("sa_group_mlp_pool", tag + label, "f32",
                       *_err(got, want),
                       cuda_ms(lambda: sa.sa_group_mlp_pool(
                           pts, ctr, *ops, radius=r, nsample=ns)),
                       cuda_ms(lambda: sa.sa_group_mlp_pool_plain(
                           pts, ctr, *ops, radius=r, nsample=ns), reps=3),
-                      SA_TOL)
+                      SA_TOL, bnd)
         # next level consumes this level's output, as PointNetPP does
         pts = torch.cat([got_xyz, got], -1).contiguous()
 
 
+def phase_sample_group(table):
+    """``ball_group`` at SA1 of the unfrozen slice, on the slice's kind of
+    data (standard-normal points, as the synthetic dataset draws them), with
+    all-pad objects and empty balls, in exact and fast mode."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+    from sceneverse_tpu_torch.ops import sample_group as sg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    G, N, C, m, ns, r = 32 * 80, 1024, 6, 32, 32, 0.2
+    pts = torch.randn((G, N, C), generator=g)
+    pts[-8:, :, :3] = 0.0  # all-pad objects: FPS repeats index 0
+    pts = pts.to(dev)
+    xyz = pts[..., :3].contiguous()
+    centers, fps_idx = sa.fps(xyz, m)
+    if not torch.equal(fps_idx, sa.fps_plain(xyz, m)[1]):
+        raise AssertionError("fps indices differ at the ball_group shapes")
+    if not bool((fps_idx[-8:] == 0).all()):
+        raise AssertionError("fps on an all-pad object must repeat index 0")
+    shifted = centers.clone()
+    shifted[:8] += 5.0  # objects whose balls are all empty
+    tag = f"SA1 G={G} N={N} C={C} m={m} ns={ns}"
+    for label, ctr in (("", centers), (" +empty", shifted)):
+        cnt = ball_counts(xyz, ctr, r)
+        for mode in ("exact", "fast"):
+            exact = mode == "exact"
+            got, got_idx = sg.ball_group(pts, ctr, ns, r, exact)
+            want, want_idx = sg.ball_group_plain(pts, ctr, ns, r, exact)
+            mism = int((got_idx != want_idx).sum())
+            if mism:
+                raise AssertionError(f"ball_group {tag}{label} {mode}: "
+                                     f"{mism} indices differ")
+            # a warp stops at the ns-th hit, else scans all N points
+            scanned = torch.where(cnt >= ns, want_idx[..., -1].long() + 1,
+                                  torch.full_like(cnt, N)).sum().item()
+            bnd = bound(nbytes(pts, ctr, want, want_idx), 8 * scanned, "f32")
+            table.add("ball_group", tag + label,
+                      "f32" if exact else "f32-fast", *_err(got, want),
+                      cuda_ms(lambda: sg.ball_group(pts, ctr, ns, r, exact)),
+                      cuda_ms(lambda: sg.ball_group_plain(pts, ctr, ns, r,
+                                                          exact), reps=3),
+                      BG_TOL[mode], bnd)
+        log(f"[kernel] ball_group {tag}{label}: mean in-ball count "
+            f"{cnt.float().mean().item():.2f}, empty balls "
+            f"{int((cnt == 0).sum())}, full balls {int((cnt >= ns).sum())}")
+    del pts, xyz, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_mha(table):
     import torch
+    import torch.nn.functional as F
 
     from sceneverse_tpu_torch.ops import mha
 
@@ -224,71 +341,127 @@ def phase_mha(table):
         locs = (torch.randn((B, L, L, 5), generator=g).to(dev) if gate
                 else None)
         base = [torch.randn((B, L, D), generator=g).to(dev) for _ in range(4)]
+        scale = 1.0 / math.sqrt(dh)
         for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v, do = (t.to(dtype) for t in base)
-            args = (q, k, v, pad, sw, locs, H, 1.0 / math.sqrt(dh), rate, 77)
+            args = (q, k, v, pad, sw, locs, H, scale, rate, 77)
             o, lse = mha.mha_fwd(*args)
             o_ref, lse_ref = mha.mha_fwd_plain(*args)
             lerr, lscale = _err(lse, lse_ref)
             if lerr > TOL["f32"] * lscale:
                 raise AssertionError(f"mha_fwd lse {label} {dname}: {lerr}")
+            # library yardstick: one SDPA call on the same heads, the same
+            # additive bias (pad [+ the precomputed 'cond' gate]) and dropout
+            heads = [t.view(B, L, H, dh).transpose(1, 2).detach()
+                     .requires_grad_() for t in (q, k, v)]
+            bias = (mha._scores(torch.zeros_like(q), k, pad, sw, locs, H,
+                                scale)[0] if gate
+                    else pad[:, None, None, :]).to(dtype)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    *heads, attn_mask=bias, dropout_p=rate, scale=scale)
+
+            lib_fwd = cuda_ms(sdpa)
+            o_lib = sdpa()
+            do_h = do.view(B, L, H, dh).transpose(1, 2)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, heads, do_h, retain_graph=True))
+            del o_lib
+            el = q.element_size()
+            qkvo = 4 * B * L * D * el
+            gate_b = nbytes(sw, locs)
+            work = B * H * L * L * dh
             table.add("mha_fwd", label, dname, *_err(o, o_ref),
                       cuda_ms(lambda: mha.mha_fwd(*args)),
-                      cuda_ms(lambda: mha.mha_fwd_plain(*args)), TOL[dname])
-            bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H,
-                     1.0 / math.sqrt(dh), rate, 77)
+                      cuda_ms(lambda: mha.mha_fwd_plain(*args)), TOL[dname],
+                      bound(qkvo + nbytes(pad, lse) + gate_b, 4 * work, dname),
+                      lib_fwd)
+            bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, scale,
+                     rate, 77)
             got = mha.mha_bwd(*bargs)
             want = mha.mha_bwd_plain(*bargs)
             errs = [_err(a, b) for a, b in zip(got, want) if b is not None]
             worst = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+            # reads q, k, v, do, o, lse, pad (+ gate); writes dq, dk, dv
+            # (+ dsw); recomputes q.k and do.v and forms dv, dq, dk
             table.add("mha_bwd", label, dname, *worst,
                       cuda_ms(lambda: mha.mha_bwd(*bargs)),
-                      cuda_ms(lambda: mha.mha_bwd_plain(*bargs)), TOL[dname])
-            del o, lse, o_ref, lse_ref, got, want
+                      cuda_ms(lambda: mha.mha_bwd_plain(*bargs)), TOL[dname],
+                      bound(2 * qkvo + nbytes(pad, lse) + gate_b
+                            + nbytes(sw), 10 * work, dname), lib_bwd)
+            del o, lse, o_ref, lse_ref, got, want, heads, bias
         torch.cuda.empty_cache()
 
 
-def phase_slice():
+def phase_slice(name, extra):
+    """Drive one slice through ``run_torch.main``; returns its launches and
+    its step time, throughput and peak memory."""
     import torch
 
     import run_torch
+    from sceneverse_tpu_torch.model import build_model
     from sceneverse_tpu_torch.ops import _build
 
     os.makedirs(OUT_DIR, exist_ok=True)
     # experiment dirs (config, metrics, best.pth) go under build/, which git
     # ignores, not into the small chiprun_out/
-    args = SLICE_ARGS + [f"base_dir={os.path.join(REPO, 'build', 'smoke_runs')}"]
+    args = SLICE_ARGS + extra + [
+        f"base_dir={os.path.join(REPO, 'build', 'smoke_runs', name)}"]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     result = run_torch.main(args)
     launches = dict(_build.LAUNCHES)
     trainer = result["trainer"]
-    log(f"[slice] launches on the main path: {launches}")
+    tag = f"[slice {name}]"
+    log(f"{tag} launches on the path: {launches}")
     hist = trainer.history
     for row in hist["train"]:
-        log(f"[slice] step {row['step']} loss {row['total_loss']:.5f} "
+        log(f"{tag} step {row['step']} loss {row['total_loss']:.5f} "
             f"step_s {row['step_s']:.4f}")
     steady = [r["step_s"] for r in hist["train"][1:]]
+    step_s = statistics.mean(steady) if steady else float("nan")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[slice] steps {len(hist['train'])}, steady step "
-        f"{statistics.mean(steady) if steady else float('nan'):.4f} s "
-        f"(mean after the first), batch 32 -> "
-        f"{32 / statistics.mean(steady) if steady else float('nan'):.2f} "
-        f"scenes/s, peak memory {peak:.2f} GiB")
-    log(f"[slice] val {hist['val']}")
-    log(f"[slice] test {hist['test']}")
+    log(f"{tag} steps {len(hist['train'])}, steady step {step_s:.4f} s "
+        f"(mean after the first), batch 32 -> {32 / step_s:.2f} scenes/s, "
+        f"peak memory {peak:.2f} GiB")
+    log(f"{tag} val {hist['val']}")
+    log(f"{tag} test {hist['test']}")
     losses = [r["total_loss"] for r in hist["train"]]
     if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"slice losses not finite / not 4 steps: {losses}")
+        raise AssertionError(f"{name} slice losses not finite / not 4 steps: "
+                             f"{losses}")
     for key in ("val", "test"):
         if not hist[key] or not all(math.isfinite(v) for v in
                                     hist[key][-1].values()):
-            raise AssertionError(f"{key} eval missing or not finite")
-    for name in SOURCES:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
-    return launches, {"steady_step_s": statistics.mean(steady) if steady else None,
-                      "peak_mem_gib": peak}
+            raise AssertionError(f"{name} slice: {key} eval missing or not "
+                                 "finite")
+    for k in PATHS[name][1]:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} never launched on the {name} "
+                                 "path")
+    if name == "unfrozen":
+        # the same seeded build the trainer made, against what it trained
+        cfg = trainer.cfg
+        built = build_model(cfg, generator=torch.Generator().manual_seed(
+            int(cfg.get("rng_seed", 42)))).state_dict()
+        trained = trainer.model.state_dict()
+        pnet = [k for k in built if k.startswith(
+            "point_encoder.point_feature_extractor.")
+            and not k.endswith("num_batches_tracked")]
+        same = [k for k in pnet
+                if torch.equal(built[k], trained[k].detach().cpu())]
+        log(f"{tag} PointNet++ tensors changed by training: "
+            f"{len(pnet) - len(same)} of {len(pnet)}")
+        if same or len(pnet) != 3 * 3 * 5 + 2:
+            raise AssertionError(f"PointNet++ tensors unchanged: {same}")
+    info = {"steady_step_s": step_s, "scenes_per_s": 32 / step_s,
+            "peak_mem_gib": peak, "launches": launches}
+    del result, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
 
 
 def main():
@@ -299,23 +472,27 @@ def main():
     phase_build()
     table = Table()
     phase_sa(table)
+    phase_sample_group(table)
     phase_mha(table)
-    launches, slice_info = phase_slice()
+    slices = {name: phase_slice(name, extra)
+              for name, (extra, _) in PATHS.items()}
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]
         # headline: the heaviest f32 call shape of the main path
         head = max((r for r in row["shapes"] if r["dtype"] == "f32"),
                    key=lambda r: r["ms"])
+        by_path = {p: s["launches"].get(name, 0) for p, s in slices.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches.get(name, 0),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "shape": head["shape"]})
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"]})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
-                   "slice": slice_info, "card": card}, f, indent=1)
+                   "slices": slices, "card": card}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,22 @@
 """Profile steady train steps of the PyTorch/CUDA port on one CUDA card.
 
-    python3 profile_torch.py [--amp no bf16] [--steps 3] [key=value ...]
+    python3 profile_torch.py [key=value ...] [--amp no bf16] [--steps 3]
+
+(overrides first: ``--amp`` takes every word after it.)
 
 Builds the port's trainer from ``run_torch.load_cfg`` (by default the
-full-width ``synthetic_pretrain`` slice of chip_smoke.py, batch 32), takes
-two warm-up steps on one fixed batch, then ``--steps`` steps under
-torch.profiler for each ``--amp`` mode (``mixed_precision``). Prints wall
-ms/step, device kernel time per step, the device busy share of the window
-and the device time by kernel family (this port's kernels, GEMMs, other);
-writes the full torch.profiler tables to ``chiprun_out/profile_<amp>.txt``.
-Imports no JAX.
+full-width ``synthetic_pretrain`` slice of chip_smoke.py, batch 32; the
+overrides pick another, e.g. ``model.vision.args.freeze=False`` for the
+unfrozen PointNet++), takes two warm-up steps on one fixed batch, times
+``--steps`` steps, then runs as many under torch.profiler, for each
+``--amp`` mode (``mixed_precision``). Prints wall ms/step with and without
+the profiler, device kernel time per step, the device busy share of both,
+the host calls that wait on the device (synchronisations, allocations,
+copies) and the device time by kernel family (this port's kernels, GEMMs,
+elementwise and reduction kernels (BatchNorm, ReLU, LayerNorm, GELU),
+other); writes the torch.profiler tables, by device and by host time, to
+``profile_<frozen|unfrozen>_<amp>.txt`` in ``OUT_DIR``. Imports nothing of
+JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -26,13 +33,18 @@ sys.path.insert(0, REPO)
 from chip_smoke import SLICE_ARGS  # noqa: E402
 
 _GEMM = ("gemm", "sgemm", "cutlass", "xmma", "nvjet")
+_ELEMENTWISE = ("elementwise", "reduce_kernel", "norm", "batch_norm")
+_HOST_WAITS = ("Synchronize", "cudaMalloc", "cudaFree", "cudaMemcpy")
 
 
 def family(name: str) -> str:
-    for k in ("mha_fwd", "mha_bwd", "sa_group", "fps"):
+    for k in ("mha_fwd", "mha_bwd", "sa_group", "ball_group", "fps"):
         if k in name:
             return k
-    return "gemm" if any(t in name.lower() for t in _GEMM) else "other"
+    low = name.lower()
+    if any(t in low for t in _GEMM):
+        return "gemm"
+    return "elementwise" if any(t in low for t in _ELEMENTWISE) else "other"
 
 
 def profile(amp: str, steps: int, overrides: list[str]) -> None:
@@ -45,11 +57,17 @@ def profile(amp: str, steps: int, overrides: list[str]) -> None:
     runs = os.path.join(REPO, "build", "prof")
     cfg = run_torch.load_cfg(SLICE_ARGS + [f"mixed_precision={amp}",
                                            f"exp_dir={runs}", *overrides])
+    tag = "frozen" if cfg.model.vision.args.get("freeze") else "unfrozen"
     trainer = build_trainer(cfg)
     batch = to_device(next(iter(trainer.data_loaders["train"])), trainer.device)
     for _ in range(2):  # warm-up
         trainer.train_forward_backward(batch)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the same steps without the profiler's cost
+    for _ in range(steps):
+        trainer.train_forward_backward(batch)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -68,18 +86,27 @@ def profile(amp: str, steps: int, overrides: list[str]) -> None:
         f[0] += dev_us
         f[1].append((dev_us, e.key))
         total += dev_us
-    print(f"[profile {amp}] {steps} steps, {wall / steps * 1e3:.2f} ms/step "
-          f"wall, device kernel time {total / steps / 1e3:.2f} ms/step, busy "
-          f"share {total / 1e3 / (wall * 1e3):.3f}", flush=True)
+    print(f"[profile {tag} {amp}] {steps} steps, "
+          f"{wall / steps * 1e3:.2f} ms/step wall profiled, "
+          f"{bare / steps * 1e3:.2f} without the profiler, device kernel time "
+          f"{total / steps / 1e3:.2f} ms/step, busy share "
+          f"{total / 1e3 / (wall * 1e3):.3f} profiled, "
+          f"{min(1.0, total / 1e3 / (bare * 1e3)):.3f} without", flush=True)
     for k, (us, items) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile {amp}]   {k:9s} {us / steps / 1e3:8.2f} ms/step "
+        print(f"[profile {tag} {amp}]   {k:11s} {us / steps / 1e3:8.2f} ms/step "
               f"({us / total:.3f} of device time)")
         for t, n in sorted(items, reverse=True)[:3]:
-            print(f"[profile {amp}]       {t / steps / 1e3:8.2f} ms  {n[:90]}")
+            print(f"[profile {tag} {amp}]       {t / steps / 1e3:8.2f} ms  {n[:90]}")
+    for e in prof.key_averages():  # host calls that wait on the device
+        if any(t in e.key for t in _HOST_WAITS):
+            print(f"[profile {tag} {amp}]   host {e.key}: "
+                  f"{e.count / steps:.1f} calls/step, "
+                  f"{e.self_cpu_time_total / steps / 1e3:.2f} ms/step")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"profile_{amp}.txt"), "w") as fh:
-        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                           row_limit=60))
+    with open(os.path.join(OUT_DIR, f"profile_{tag}_{amp}.txt"), "w") as fh:
+        for key in ("self_cuda_time_total", "self_cpu_time_total"):
+            fh.write(prof.key_averages().table(sort_by=key, row_limit=60))
+            fh.write("\n")
 
 
 def main(argv=None) -> None:

@@ -7,8 +7,9 @@ Usage:
 
 Loads the YAML config with dotted overrides, names and creates the
 experiment directory from ``naming_keywords``, snapshots the resolved
-config, builds the port's trainer (CUDA when available, else CPU; override
-with ``device=cpu``) and runs it. Imports no JAX.
+config, builds the port's trainer and runs it. The trainer runs on the CUDA
+card, and raises when there is none, unless ``device=cpu`` asks for the CPU.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def compose_exp_name(cfg) -> str:
 def load_cfg(argv=None):
     """The resolved config of a command line (YAML + overrides), with
     ``exp_dir`` named from ``naming_keywords`` unless given."""
-    from sceneverse_tpu.config import load_config
+    from sceneverse_tpu_torch.config import load_config
 
     args = parse_args(argv)
     name = args.config_name
@@ -64,7 +65,7 @@ def load_cfg(argv=None):
 
 
 def main(argv=None):
-    from sceneverse_tpu.config import save_config
+    from sceneverse_tpu_torch.config import save_config
 
     cfg = load_cfg(argv)
     os.makedirs(cfg.exp_dir, exist_ok=True)

@@ -2,8 +2,9 @@
 Hopper (H100).
 
 The JAX package (``sceneverse_tpu``) is the reference this package is held
-against. Framework-free parts of it (config, registry, datasets, tokenizer)
-are reused by import; nothing here imports ``jax`` or ``flax``.
+against. The framework-free parts the port needs (config, registry, the
+synthetic dataset, the metrics logger) are copies kept in this package;
+nothing here imports ``jax``, ``flax`` or the JAX package.
 
 Every Pallas kernel on the GPS pretrain path has a hand-written CUDA C++
 counterpart under ``csrc/`` (built with nvcc at first use, bound with

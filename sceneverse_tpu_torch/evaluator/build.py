@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sceneverse_tpu.registry import Registry
+from sceneverse_tpu_torch.registry import Registry
 
 EVALUATOR_REGISTRY = Registry("EVALUATOR")
 

@@ -1,7 +1,7 @@
 """GPS task model ``OpenVocab`` (port of sceneverse_tpu/model/openvocab.py;
 reference model/openvocab.py:11-126): BERT text tower (utterance, and the
 scene caption as a second, [CLS]-only call when ``split_scene_cap_tower``),
-the frozen PointNet++ + spatial vision tower, the unified encoder and the
+the PointNet++ + spatial vision tower, the unified encoder and the
 configured heads; og3d logits are fused objects . fused [CLS] text."""
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sceneverse_tpu.registry import Registry
+from sceneverse_tpu_torch.registry import Registry
 from sceneverse_tpu_torch.modules.build import build_module
 from sceneverse_tpu_torch.modules.utils import init_bert_weights
 

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from sceneverse_tpu.registry import Registry
+from sceneverse_tpu_torch.registry import Registry
 
 VISION_REGISTRY = Registry("vision")
 LANGUAGE_REGISTRY = Registry("language")

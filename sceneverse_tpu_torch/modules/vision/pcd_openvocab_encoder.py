@@ -1,5 +1,6 @@
-"""GPS vision tower: frozen PointNet++ + 4-layer spatial 'cond' transformer
-(port of sceneverse_tpu/modules/vision/pcd_openvocab_encoder.py; reference
+"""GPS vision tower: PointNet++ (frozen or trainable, ``freeze``) + 4-layer
+spatial 'cond' transformer (port of
+sceneverse_tpu/modules/vision/pcd_openvocab_encoder.py; reference
 modules/vision/pcd_openvocab_encoder.py:16-184). Returns
 (post_embeds, pre_embeds, softmax obj_sem_cls)."""
 
@@ -52,9 +53,6 @@ class PointOpenVocabEncoder(nn.Module):
         super().__init__()
         if backbone != "pointnet++":
             raise NotImplementedError(f"backbone {backbone!r}")
-        if not freeze:
-            raise NotImplementedError(
-                "the trainable (unfrozen) PointNet++ path is not ported yet")
         if attn_type != "spatial":
             raise NotImplementedError(f"attn_type {attn_type!r}")
         self.point_feature_extractor = PointNetPP(
@@ -66,7 +64,11 @@ class PointOpenVocabEncoder(nn.Module):
             _load_text_features(lang_path, lang_type, hidden_size)))
         self.dropout = Dropout(0.1)
         self.freeze = freeze
-        self.point_feature_extractor.requires_grad_(False)
+        if freeze:
+            # frozen backbone: eval BatchNorm, no gradients, fused kernels
+            # (the JAX encoder's :98-101)
+            self.point_feature_extractor.requires_grad_(False)
+            self.point_feature_extractor.set_fused_frozen()
         # built for checkpoint parity; unused by the reference forward
         self.sem_cls_embed_layer = nn.Sequential(
             nn.Linear(hidden_size, hidden_size),
@@ -85,7 +87,8 @@ class PointOpenVocabEncoder(nn.Module):
 
     def train(self, mode: bool = True):
         super().train(mode)
-        self.point_feature_extractor.eval()  # frozen BN statistics
+        if self.freeze:
+            self.point_feature_extractor.eval()  # frozen BN statistics
         return self
 
     def forward(self, obj_pcds, obj_locs, obj_masks, obj_sem_masks=None,
@@ -93,7 +96,9 @@ class PointOpenVocabEncoder(nn.Module):
         B, O = obj_pcds.shape[:2]
         flat = obj_pcds.reshape(B * O, *obj_pcds.shape[2:])
         obj_embeds = self.point_feature_extractor(flat).reshape(B, O, -1)
-        obj_embeds = self.dropout(obj_embeds).detach()  # frozen backbone
+        obj_embeds = self.dropout(obj_embeds)
+        if self.freeze:
+            obj_embeds = obj_embeds.detach()
         logits = obj_embeds @ self.text_features.t().to(obj_embeds.dtype)
         obj_sem_cls = torch.softmax(logits.float(), dim=2).detach()
         obj_embeds_pre = obj_embeds

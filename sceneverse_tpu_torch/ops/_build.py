@@ -62,27 +62,37 @@ def _digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _start(name: str):
+    """(output path, temp path, running nvcc), nvcc None when cached."""
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"{name}_{_digest(src)}.so"
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    if out.exists():
+        return out, tmp, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, out: Path, tmp: Path, proc) -> ctypes.CDLL:
+    if proc is not None:
+        log, _ = proc.communicate()
+        LAST_BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _LIBS[name] = lib
+    return lib
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (cached) and return the loaded library."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
-        src = CSRC / f"{name}.cu"
-        out = BUILD_DIR / f"{name}_{_digest(src)}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                   str(src)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            LAST_BUILD_LOG[name] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src.name}:\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _LIBS[name] = lib
-        return lib
+        return _finish(name, *_start(name))
 
 
 def bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes._CFuncPtr:
@@ -116,8 +126,17 @@ def require_cuda(t, name: str, dtypes, ndim: int):
 
 
 def build_all() -> list:
-    """Build every kernel library of the package; returns their names."""
+    """Build every kernel library of the package, one ``nvcc`` per source,
+    all started together; returns their names."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    for n in names:
-        load_library(n)
+    with _LOCK:
+        jobs = {n: _start(n) for n in names if n not in _LIBS}
+        try:
+            for n, job in jobs.items():
+                _finish(n, *job)
+        finally:  # a failed build leaves no compiler running
+            for *_, proc in jobs.values():
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return names

@@ -304,8 +304,9 @@ def fused_mha(q, k, v, n_heads: int, key_padding_mask=None,
     if pad_additive is not None:
         padadd = pad_additive.float()
     elif key_padding_mask is not None:
-        padadd = torch.where(key_padding_mask.bool(),
-                             torch.tensor(NEG, device=q.device), 0.0).float()
+        # Python scalars: a device tensor made from a host value would copy
+        # and synchronise the stream on every call
+        padadd = torch.where(key_padding_mask.bool(), NEG, 0.0).float()
     else:
         padadd = torch.zeros((B, T), device=q.device)
     sw = lc = None

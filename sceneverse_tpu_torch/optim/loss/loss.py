@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sceneverse_tpu.registry import Registry
+from sceneverse_tpu_torch.registry import Registry
 
 LOSS_REGISTRY = Registry("loss")
 

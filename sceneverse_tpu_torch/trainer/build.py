@@ -3,9 +3,11 @@
 Model, loss, optimizer and loaders live on one explicit device. A train
 step is forward, loss, backward, global-norm clip, AdamW and the LR
 schedule, with ``torch.autocast(bfloat16)`` when ``mixed_precision`` asks
-for it. Data comes from the JAX package's framework-free datasets
-(``get_dataset``) through a ``torch.utils.data.DataLoader`` with an explicit
-seeded generator.
+for it. The device is CUDA unless the caller asks for the CPU (the
+``device`` argument or ``device=cpu`` in the config); with no CUDA card the
+trainer raises instead of falling back. Data comes from the port's datasets
+(``data/build.py::get_dataset``) through a ``torch.utils.data.DataLoader``
+with an explicit seeded generator.
 
 Not ported yet (JAX-only mechanisms or later work): resume, packed host
 transfer, K steps per dispatch, fused eval, gradient accumulation, DDP.
@@ -18,14 +20,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from sceneverse_tpu.data.build import get_dataset, numpy_collate
-from sceneverse_tpu.registry import Registry
-from sceneverse_tpu.utils.logger import MetricsLogger
+from sceneverse_tpu_torch.data.build import get_dataset, numpy_collate
 from sceneverse_tpu_torch.evaluator import build_eval
 from sceneverse_tpu_torch.model import build_model
 from sceneverse_tpu_torch.modules.utils import set_generators
 from sceneverse_tpu_torch.optim.build import GPSOptimizer
 from sceneverse_tpu_torch.optim.loss.loss import Loss
+from sceneverse_tpu_torch.registry import Registry
+from sceneverse_tpu_torch.utils.logger import MetricsLogger
 
 TRAINER_REGISTRY = Registry("trainer")
 
@@ -37,8 +39,6 @@ def build_dataloader(cfg, split: str):
     """Train: shuffled drop-last loader; eval: one loader per dataset (the
     loader itself when there is one), in order."""
     from torch.utils.data import DataLoader
-
-    import sceneverse_tpu.data.datasets.synthetic  # noqa: F401 (registry)
 
     workers = int(cfg.dataloader.get("num_workers", 0))
     gen = torch.Generator().manual_seed(int(cfg.get("rng_seed", 42)))
@@ -79,9 +79,11 @@ class Tracker:
 class BaseTrainer:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
-        self.device = torch.device(
-            device or cfg.get("device")
-            or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device or cfg.get("device") or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "the trainer runs on CUDA unless asked for the CPU "
+                "(device=cpu), and torch.cuda.is_available() is False")
         self.mode = cfg.get("mode", "train")
         self.epochs = int(cfg.solver.epochs)
         self.epochs_per_eval = cfg.solver.get("epochs_per_eval")

@@ -8,7 +8,9 @@ import). On a GPU machine, without the JAX-only conftest:
 Tolerances on max|kernel - plain| / max|plain|: f32 1e-4 (same f32
 arithmetic, another summation order); bf16 2e-2 (an element on a bf16
 rounding boundary may land one step, 2^-8, apart); SA 1e-2 (bf16 weights and
-activations on both sides); FPS indices exactly equal."""
+activations on both sides); FPS and ball-query indices exactly equal;
+ball_group's grouped rows exactly equal (the same gather, bf16 rounding and
+f32 subtraction on both sides)."""
 
 import math
 
@@ -66,6 +68,36 @@ def test_sa_kernels_match_plain(dev, N, C, m, ns, r, spec):
             == before.get("sa_group_mlp_pool", 0) + 1)
 
 
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("G,N,C,m,ns,r", [
+    (48, 256, 6, 32, 32, 0.2),      # small
+    (2560, 1024, 6, 32, 32, 0.2),   # SA1 of the unfrozen slice
+])
+def test_ball_group_matches_plain(dev, G, N, C, m, ns, r, exact):
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+    from sceneverse_tpu_torch.ops import sample_group as sg
+
+    g = torch.Generator().manual_seed(2)
+    pts = torch.randn((G, N, C), generator=g)
+    pts[-2:, :, :3] = 0.0  # all-pad objects
+    pts = pts.to(dev)
+    ctr, _ = sa.fps(pts[..., :3].contiguous(), m)
+    ctr[:2] += 5.0  # empty balls
+    before = _build.LAUNCHES["ball_group"]
+    got, idx = sg.ball_group(pts, ctr, ns, r, exact)
+    want, want_idx = sg.ball_group_plain(pts, ctr, ns, r, exact)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ball_group"] == before + 1
+    assert torch.equal(idx, want_idx) and torch.equal(got, want)
+    assert (idx[:2] == 0).all()
+    grouped, new_xyz, fps_idx, bq_idx = sg.fused_sample_and_group(
+        pts, m, ns, r, exact)
+    ref = sg.sample_and_group_plain(pts, m, ns, r, exact)
+    for a, b in zip((grouped, new_xyz, fps_idx, bq_idx), ref):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("L,T,gate,rate", [
@@ -102,6 +134,17 @@ def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from sceneverse_tpu_torch.ops import mha
+    from sceneverse_tpu_torch.ops import sample_group as sg
+
+    pts = torch.randn((2, 64, 6), device=dev)
+    ctr = pts[:, :8, :3].contiguous()
+    with pytest.raises(TypeError):  # f64 points
+        sg.ball_group(pts.double(), ctr, 4, 0.5)
+    with pytest.raises(ValueError):  # centers not (G, m, 3)
+        sg.ball_group(pts, pts[:, :8, :4].contiguous(), 4, 0.5)
+    with pytest.raises(ValueError):  # an object beyond shared memory
+        sg.ball_group(torch.zeros((1, 20000, 6), device=dev),
+                      ctr[:1], 4, 0.5)
 
     q = torch.randn((2, 8, 64), device=dev, dtype=torch.float16)
     pad = torch.zeros((2, 8), device=dev)

@@ -1,7 +1,7 @@
 """Port parity for the whole slice: the sceneverse_tpu_torch OpenVocab model,
 its losses and its AdamW step against the JAX model and optax, with the JAX
 weights carried over; plus a CPU run of run_torch.py that must never import
-JAX.
+JAX or the JAX package.
 
 Setup: synthetic_pretrain at hidden 64, 2 layers per tower, 5 objects x 64
 points, 16 text tokens, batch 2, dropout off (eval mode on both sides). The
@@ -209,6 +209,8 @@ print(json.dumps({{
     "test": out["results"],
     "device": str(out["trainer"].device),
     "jax": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax")),
+    "jax_package": sorted(m for m in sys.modules
+                          if m.split(".")[0] == "sceneverse_tpu"),
 }}))
 """
 
@@ -226,6 +228,7 @@ def test_run_torch_cpu_two_steps_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["jax"] == []
+    assert res["jax_package"] == []
     assert res["device"] == "cpu"
     assert len(res["losses"]) == 2
     assert all(np.isfinite(x) for x in res["losses"])
