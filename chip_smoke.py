@@ -13,14 +13,20 @@ Phases (any failure exits non-zero; nothing is caught):
      with CUDA-event times of kernel, twin and, where one PyTorch call
      computes the same function, that call (``library_ms``: SDPA forward and
      backward for the MHA kernels; timed here, never called by the port),
-     and the least time the card could take (``bound_ms``).
+     and the least time the card could take (``bound_ms``). The four
+     ``sa_train`` kernels run at SA1, SA2 and SA3 of the fused slice and
+     must give bit-identical outputs twice.
   4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
      (768-d, 80 objects x 1024 points, 50 + 300 tokens, batch 32): train
-     steps, val and test eval, once with the frozen PointNet++ and once
-     unfrozen (``model.vision.args.freeze=False``: trainable PointNet++,
-     train-mode BatchNorm). Launch counters are reset just before each and
-     read just after; every kernel of each path must have launched; the
-     unfrozen run must move the PointNet++ weights and BatchNorm statistics.
+     steps, val and test eval, with the frozen PointNet++, unfrozen
+     (``model.vision.args.freeze=False``: trainable PointNet++, train-mode
+     BatchNorm), and unfrozen with ``SCENEVERSE_BN_FOLD=on`` and
+     ``SCENEVERSE_SA_TRAIN_FUSED=on`` set for that slice only (every SA
+     level through the fused ``sa_train`` kernels). Launch counters are
+     reset just before each and read just after; every kernel of each path
+     must have launched, the fused slice's ``sa_*`` kernels exactly as often
+     per train step as three fused levels need; the unfrozen runs must move
+     every PointNet++ weight and BatchNorm statistic.
   5. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -60,11 +66,34 @@ SA_TOL = 1e-2
 # ball_group: exact mode gathers and subtracts like its twin (0); fast mode
 # rounds the gathered values to bf16 on both sides, at most one bf16 step
 BG_TOL = {"exact": 0.0, "fast": 2.0 ** -8}
-# kernels of each slice's path
+# sa_train kernels vs their twins, on max|kernel - plain| / max|plain|:
+#  sums: sums and Gram over up to 2.6 M rows: f32 sums in another order,
+#        and an occasional one-step bf16 flip of a single h value
+#  grads: dW, da, db. Random cotangents cancel in these sums, so max|plain|
+#        is ~sqrt(rows) times one row's term, while a ReLU decision that
+#        lands the other way (u summed in another order) moves one row's
+#        term whole: at SA2's 40960 pooled centers that is ~5e-3
+#  pooled: a flipped bf16 h2 value moves the h3 of its row by one step of
+#        a product term
+#  rows / rows_max: per-row dx, see check_rows
+#  arg_share: argmax entries that may differ from the twin's (near-ties, see
+#        check_argmax); measured at most 1.8e-5 (SA3, ns=16) on an H100
+SA_TRAIN_TOL = {"sums": 1e-3, "grads": 1e-2, "pooled": 1e-2, "rows": 1e-2,
+                "rows_max": 0.25, "arg_share": 5e-5}
+# each slice: (overrides, kernels of its path, environment for the slice
+# only); the fused slice's sa_* kernels launch this often per train step
+# (sa_stats twice per SA level, sa_pool once, each backward as often; eval
+# runs BatchNorm on its running statistics, the literal route)
+FUSED_ENV = {"SCENEVERSE_BN_FOLD": "on", "SCENEVERSE_SA_TRAIN_FUSED": "on"}
+SA_TRAIN_PER_STEP = {"sa_stats": 6, "sa_stats_bwd": 6, "sa_pool": 3,
+                     "sa_pool_bwd": 3}
 PATHS = {
-    "frozen": ([], ("fps", "sa_group_mlp_pool", "mha_fwd", "mha_bwd")),
+    "frozen": ([], ("fps", "sa_group_mlp_pool", "mha_fwd", "mha_bwd"), {}),
     "unfrozen": (["model.vision.args.freeze=False"],
-                 ("fps", "ball_group", "mha_fwd", "mha_bwd")),
+                 ("fps", "ball_group", "mha_fwd", "mha_bwd"), {}),
+    "unfrozen_fused": (["model.vision.args.freeze=False"],
+                       ("fps", "ball_group", "mha_fwd", "mha_bwd",
+                        *SA_TRAIN_PER_STEP), FUSED_ENV),
 }
 # H100 SXM: HBM bytes/s and peak FLOP/s by operand type (CUDA-core f32,
 # dense bf16 tensor cores), from the H100 SXM datasheet
@@ -82,6 +111,14 @@ SOURCES = {
                 "sceneverse_tpu/ops/pallas/mha.py:181"),
     "mha_bwd": ("sceneverse_tpu_torch/csrc/mha_kernels.cu",
                 "sceneverse_tpu/ops/pallas/mha.py:229"),
+    "sa_stats": ("sceneverse_tpu_torch/csrc/sa_train.cu",
+                 "sceneverse_tpu/ops/pallas/sa_train.py:103"),
+    "sa_stats_bwd": ("sceneverse_tpu_torch/csrc/sa_train.cu",
+                     "sceneverse_tpu/ops/pallas/sa_train.py:184"),
+    "sa_pool": ("sceneverse_tpu_torch/csrc/sa_train.cu",
+                "sceneverse_tpu/ops/pallas/sa_train.py:210"),
+    "sa_pool_bwd": ("sceneverse_tpu_torch/csrc/sa_train.cu",
+                    "sceneverse_tpu/ops/pallas/sa_train.py:232"),
 }
 
 
@@ -315,6 +352,186 @@ def phase_sample_group(table):
     torch.cuda.empty_cache()
 
 
+def _sa_train_flops(R, dims, upto, kind, need_dx=True):
+    """Operations of one call: the chain's products once, plus the Gram
+    (stats: symmetric, so its upper triangle, R * H * (H + 1)), the dsym
+    product (stats backward, a full product) and the dW and d_prev products
+    of each layer (backward). dims = [C, H1, H2, H3]."""
+    mm = [2 * R * k * h for k, h in zip(dims[:upto], dims[1:upto + 1])]
+    H = dims[upto]
+    if kind == "stats":
+        return sum(mm) + R * H * (H + 1)
+    if kind == "pool":
+        return sum(mm)
+    extra = 2 * R * H * H if kind == "stats_bwd" else 0
+    back = sum(mm) + sum(mm[1:]) + (mm[0] if need_dx else 0)
+    return sum(mm) + extra + back
+
+
+def _tensors(o):
+    """The tensors of a nest of tuples and lists, in order."""
+    if isinstance(o, (tuple, list)):
+        return [t for i in o for t in _tensors(i)]
+    return [] if o is None else [o]
+
+
+def _sa_train_check(table, name, tag, got, want, tol, bnd, ms, plain_ms):
+    """Largest relative error over the outputs of one call; raises past
+    ``tol``."""
+    worst = max((_err(g, w) for g, w in zip(got, want)),
+                key=lambda e: e[0] / max(e[1], 1e-30))
+    table.add(name, tag, "f32", *worst, ms, plain_ms, tol, bnd)
+
+
+def phase_sa_train(table):
+    """The four ``sa_train`` kernels against their plain twins at the three
+    SA levels of the fused unfreeze slice: standard-normal grouped rows,
+    random weights, BN scales (0.5-1.5) and shifts, random cotangents.
+    Each kernel also runs twice and must give bit-identical outputs."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import sa_train as st
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    G = 32 * 80
+    levels = [  # (label, centers per object, ns, dims, dx needed)
+        ("SA1", 32, 32, [6, 64, 64, 128], False),
+        ("SA2", 16, 32, [131, 128, 128, 256], True),
+        ("SA3", 1, 16, [259, 256, 512, 768], True),
+    ]
+    for label, m, ns, dims, need_dx in levels:
+        R = G * m * ns
+        tag = f"{label} R={R} {dims[0]}->{dims[1]},{dims[2]},{dims[3]}"
+        x = torch.randn((R, dims[0]), generator=g).to(dev)
+        params = tuple(
+            ((torch.randn((k, h), generator=g) / math.sqrt(k)).to(dev),
+             (torch.rand(h, generator=g) + 0.5).to(dev),
+             (torch.randn(h, generator=g) * 0.1).to(dev))
+            for k, h in zip(dims[:-1], dims[1:]))
+        wbytes = sum(nbytes(w.to(torch.bfloat16), a, b) for w, a, b in params)
+
+        def twice(fn):
+            a, b = fn(), fn()
+            if not all(torch.equal(p, q) for p, q in zip(_tensors(a),
+                                                          _tensors(b))):
+                raise AssertionError(f"{fn.__name__} {tag}: two runs differ")
+            return a
+
+        for upto in (1, 2):
+            H = dims[upto]
+
+            def stats():
+                return st.sa_stats(x, params, upto)
+            got = twice(stats)
+            want = st.mlp_stats_plain(x, params, upto)
+            bnd = bound(nbytes(x, *want) + wbytes,
+                        _sa_train_flops(R, dims, upto, "stats"), "bf16")
+            _sa_train_check(table, "sa_stats", f"{tag} upto={upto}", got,
+                            want, SA_TRAIN_TOL["sums"], bnd, cuda_ms(stats),
+                            cuda_ms(lambda: st.mlp_stats_plain(x, params,
+                                                               upto), 3))
+            dS = torch.randn(H, generator=g).to(dev)
+            dG = (torch.randn((H, H), generator=g) / H).to(dev)
+
+            def stats_bwd():
+                return st.sa_stats_bwd(x, params, upto, dS, dG, need_dx)
+            dx, grads = twice(stats_bwd)
+            wdx, wgrads = st.mlp_stats_bwd_plain(x, params, upto, dS, dG)
+            got = [t for gr in grads for t in gr]
+            want = [t for gr in wgrads for t in gr]
+            bnd = bound(nbytes(x, dS, dG, *want) + wbytes
+                        + (nbytes(x) if need_dx else 0),
+                        _sa_train_flops(R, dims, upto, "stats_bwd", need_dx),
+                        "bf16")
+            _sa_train_check(table, "sa_stats_bwd", f"{tag} upto={upto}",
+                            got, want, SA_TRAIN_TOL["grads"], bnd,
+                            cuda_ms(stats_bwd),
+                            cuda_ms(lambda: st.mlp_stats_bwd_plain(
+                                x, params, upto, dS, dG), 3))
+            if need_dx:
+                check_rows("sa_stats_bwd dx", tag, dx, wdx)
+            del got, want, grads, wgrads, dx, wdx
+
+        def pool():
+            return st.sa_pool(x, params, ns)
+        pooled, arg = twice(pool)
+        wpooled, warg = st.mlp_pool_plain(x, params, ns)
+        check_argmax(tag, x, params, ns, pooled, arg, wpooled, warg)
+        bnd = bound(nbytes(x, wpooled, warg) + wbytes,
+                    _sa_train_flops(R, dims, 3, "pool"), "bf16")
+        _sa_train_check(table, "sa_pool", tag, [pooled], [wpooled],
+                        SA_TRAIN_TOL["pooled"], bnd, cuda_ms(pool),
+                        cuda_ms(lambda: st.mlp_pool_plain(x, params, ns), 3))
+        dpooled = torch.randn(pooled.shape, generator=g).to(dev)
+
+        def pool_bwd():
+            return st.sa_pool_bwd(x, params, ns, dpooled, arg, need_dx)
+        dx, grads = twice(pool_bwd)
+        wdx, wgrads = st.mlp_pool_bwd_plain(x, params, ns, dpooled, arg)
+        got = [t for gr in grads for t in gr]
+        want = [t for gr in wgrads for t in gr]
+        bnd = bound(nbytes(x, dpooled, arg, *want) + wbytes
+                    + (nbytes(x) if need_dx else 0),
+                    _sa_train_flops(R, dims, 3, "pool_bwd", need_dx), "bf16")
+        _sa_train_check(table, "sa_pool_bwd", tag, got, want,
+                        SA_TRAIN_TOL["grads"], bnd, cuda_ms(pool_bwd),
+                        cuda_ms(lambda: st.mlp_pool_bwd_plain(
+                            x, params, ns, dpooled, arg), 3))
+        if need_dx:
+            check_rows("sa_pool_bwd dx", tag, dx, wdx)
+        del x, got, want, grads, wgrads, dx, wdx, pooled, wpooled
+        torch.cuda.empty_cache()
+
+
+def check_rows(name, tag, got, want):
+    """Per-row outputs (dx): a ReLU decision that lands the other way in
+    one row (u summed in another order, |z| within an ulp of 0) moves that
+    row alone, so all but a 1e-4 share of the elements must be within
+    ``rows`` of max|want| and none beyond ``rows_max``."""
+    import torch
+
+    scale = want.abs().max().item()
+    err = (got - want).abs()
+    share = (err > SA_TRAIN_TOL["rows"] * scale).float().mean().item()
+    worst = err.max().item() / scale
+    log(f"[kernel] {name:18s} {tag}: max_rel_err={worst:.3e}, share beyond "
+        f"{SA_TRAIN_TOL['rows']:g}: {share:.2e}")
+    if not (share <= 1e-4 and worst <= SA_TRAIN_TOL["rows_max"]
+            and torch.isfinite(got).all()):
+        raise AssertionError(f"{name} {tag}: {worst} / {share}")
+
+
+def check_argmax(tag, x, params, ns, pooled, arg, wpooled, warg):
+    """The argmax must equal the twin's, except at near-ties: at most an
+    ``arg_share`` of the entries may differ, and where one does, the twin's
+    h3 at the kernel's slot must lie within ``pooled`` of the center's own
+    max|pooled| (over its channels) of the twin's max."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import sa_train as st
+
+    diff = arg != warg
+    n = int(diff.sum())
+    share = n / arg.numel()
+    worst = 0.0
+    if n:
+        h3 = st.chain_plain(x, params, 3)[-1].reshape(*pooled.shape[:1], ns,
+                                                      -1)
+        at = torch.gather(h3, 1, arg.long()[:, None, :])[:, 0]
+        center = wpooled.abs().amax(1, keepdim=True).expand_as(wpooled)
+        worst = ((at - wpooled).abs()[diff]
+                 / center[diff].clamp_min(1e-30)).max().item()
+        del h3, at, center
+    log(f"[kernel] sa_pool argmax {tag}: {n} of {arg.numel()} differ "
+        f"(share {share:.2e}, tol {SA_TRAIN_TOL['arg_share']:g}), largest "
+        f"gap {worst:.3e} of the center's max (tol "
+        f"{SA_TRAIN_TOL['pooled']:g})")
+    if share > SA_TRAIN_TOL["arg_share"] or worst > SA_TRAIN_TOL["pooled"]:
+        raise AssertionError(f"sa_pool {tag}: argmax differs at {n} places "
+                             f"(share {share}), gap {worst}")
+
+
 def phase_mha(table):
     import torch
     import torch.nn.functional as F
@@ -394,9 +611,23 @@ def phase_mha(table):
         torch.cuda.empty_cache()
 
 
-def phase_slice(name, extra):
-    """Drive one slice through ``run_torch.main``; returns its launches and
-    its step time, throughput and peak memory."""
+def phase_slice(name, extra, env):
+    """Drive one slice through ``run_torch.main`` with ``env`` set for it
+    alone; returns its launches and its step time, throughput and peak
+    memory."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return _run_slice(name, extra)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _run_slice(name, extra):
     import torch
 
     import run_torch
@@ -441,7 +672,13 @@ def phase_slice(name, extra):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} never launched on the {name} "
                                  "path")
-    if name == "unfrozen":
+    if name == "unfrozen_fused":  # every SA level took the fused path
+        steps = len(hist["train"])
+        for k, n in SA_TRAIN_PER_STEP.items():
+            if launches.get(k, 0) != n * steps:
+                raise AssertionError(f"{k}: {launches.get(k, 0)} launches, "
+                                     f"expected {n} x {steps} train steps")
+    if name.startswith("unfrozen"):
         # the same seeded build the trainer made, against what it trained
         cfg = trainer.cfg
         built = build_model(cfg, generator=torch.Generator().manual_seed(
@@ -474,8 +711,9 @@ def main():
     phase_sa(table)
     phase_sample_group(table)
     phase_mha(table)
-    slices = {name: phase_slice(name, extra)
-              for name, (extra, _) in PATHS.items()}
+    phase_sa_train(table)
+    slices = {name: phase_slice(name, extra, env)
+              for name, (extra, _, env) in PATHS.items()}
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]

@@ -1,13 +1,15 @@
 """Profile steady train steps of the PyTorch/CUDA port on one CUDA card.
 
-    python3 profile_torch.py [key=value ...] [--amp no bf16] [--steps 3]
+    python3 profile_torch.py [key=value ...] [--fused] [--amp no bf16] [--steps 3]
 
 (overrides first: ``--amp`` takes every word after it.)
 
 Builds the port's trainer from ``run_torch.load_cfg`` (by default the
 full-width ``synthetic_pretrain`` slice of chip_smoke.py, batch 32; the
 overrides pick another, e.g. ``model.vision.args.freeze=False`` for the
-unfrozen PointNet++), takes two warm-up steps on one fixed batch, times
+unfrozen PointNet++; with ``--fused`` as well, the trainable SA levels run
+the fused ``sa_train`` kernels: ``SCENEVERSE_BN_FOLD=on`` and
+``SCENEVERSE_SA_TRAIN_FUSED=on``), takes two warm-up steps on one fixed batch, times
 ``--steps`` steps, then runs as many under torch.profiler, for each
 ``--amp`` mode (``mixed_precision``). Prints wall ms/step with and without
 the profiler, device kernel time per step, the device busy share of both,
@@ -15,7 +17,7 @@ the host calls that wait on the device (synchronisations, allocations,
 copies) and the device time by kernel family (this port's kernels, GEMMs,
 elementwise and reduction kernels (BatchNorm, ReLU, LayerNorm, GELU),
 other); writes the torch.profiler tables, by device and by host time, to
-``profile_<frozen|unfrozen>_<amp>.txt`` in ``OUT_DIR``. Imports nothing of
+``profile_<frozen|unfrozen|unfrozen_fused>_<amp>.txt`` in ``OUT_DIR``. Imports nothing of
 JAX or of the JAX package.
 """
 
@@ -30,17 +32,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 sys.path.insert(0, REPO)
 
-from chip_smoke import SLICE_ARGS  # noqa: E402
+from chip_smoke import FUSED_ENV, SLICE_ARGS  # noqa: E402
 
 _GEMM = ("gemm", "sgemm", "cutlass", "xmma", "nvjet")
 _ELEMENTWISE = ("elementwise", "reduce_kernel", "norm", "batch_norm")
 _HOST_WAITS = ("Synchronize", "cudaMalloc", "cudaFree", "cudaMemcpy")
 
 
+_SA_TRAIN = ("st_fwd_kernel", "st_bwd_kernel", "st_reduce_kernel")
+
+
 def family(name: str) -> str:
     for k in ("mha_fwd", "mha_bwd", "sa_group", "ball_group", "fps"):
         if k in name:
             return k
+    if any(k in name for k in _SA_TRAIN):
+        return "sa_train"
     low = name.lower()
     if any(t in low for t in _GEMM):
         return "gemm"
@@ -58,6 +65,8 @@ def profile(amp: str, steps: int, overrides: list[str]) -> None:
     cfg = run_torch.load_cfg(SLICE_ARGS + [f"mixed_precision={amp}",
                                            f"exp_dir={runs}", *overrides])
     tag = "frozen" if cfg.model.vision.args.get("freeze") else "unfrozen"
+    if os.environ.get("SCENEVERSE_SA_TRAIN_FUSED") == "on":
+        tag += "_fused"
     trainer = build_trainer(cfg)
     batch = to_device(next(iter(trainer.data_loaders["train"])), trainer.device)
     for _ in range(2):  # warm-up
@@ -114,6 +123,8 @@ def main(argv=None) -> None:
     p.add_argument("--amp", nargs="+", default=["no", "bf16"],
                    choices=["no", "bf16"])
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--fused", action="store_true",
+                   help="both sa_train gates on (use with freeze=False)")
     p.add_argument("overrides", nargs="*", help="key.sub=value overrides")
     a = p.parse_args(argv)
     import torch
@@ -122,6 +133,8 @@ def main(argv=None) -> None:
         sys.exit("profile_torch.py needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if a.fused:
+        os.environ.update(FUSED_ENV)
     for amp in a.amp:
         profile(amp, a.steps, a.overrides)
 

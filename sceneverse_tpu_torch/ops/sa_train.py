@@ -1,0 +1,452 @@
+"""Trainable fused set abstraction: 3 x (1x1 conv -> train-mode BatchNorm ->
+ReLU) + max-pool over grouped rows, forward and backward, with the
+activations h1-h3 kept out of device memory.
+
+Port of ``sceneverse_tpu/ops/pallas/sa_train.py``. BatchNorm rides the
+analytic fold (``fold_moments``): the batch
+moments of ``x @ W`` follow from the input's mean and Gram, so each layer is
+``relu((x @ W) * a + b)`` with (a, b) from the moments of the layer before.
+That makes three passes over the grouped rows:
+
+    plain:   moments(x)            -> (a1, b1)
+    kernel:  sa_stats(x, L1)       -> moments(h1) -> (a2, b2)
+    kernel:  sa_stats(x, L1, L2)   -> moments(h2) -> (a3, b3)
+    kernel:  sa_pool(x, L1-L3)     -> pooled, argmax
+
+``mlp_stats`` and ``mlp_pool`` are ``torch.autograd.Function``s whose
+backward is a kernel that recomputes the chain (``sa_stats_bwd``,
+``sa_pool_bwd``); the moment cotangents (dS, dG) flow back into the rows as
+``dh = dS + h (dG + dG^T)``, so the gradients are those of BatchNorm with
+batch statistics. Four hand-written CUDA kernels (``csrc/sa_train.cu``)
+replace the four Pallas kernels:
+
+``sa_stats``     ``_stats_kernel`` (:103, launched at :321)
+``sa_stats_bwd`` ``_stats_bwd_kernel`` (:184, :371)
+``sa_pool``      ``_pool_kernel`` (:210, :420): pooled and first argmax
+``sa_pool_bwd``  ``_pool_bwd_kernel`` (:232, :466)
+
+Numerics are the TPU kernels', and the plain twins below repeat them: bf16
+operands with f32 accumulation for every product, h = relu(u * a + b) in
+f32, the next layer and the moments read bf16(h), the pool takes the max of
+the f32 (unrounded) h3 and the first slot that attains it.
+
+Design on Hopper. Each block takes row tiles of TM rows (a multiple of the
+pool's ``ns``, so whole centers), recomputes the chain with ``wmma`` bf16
+16x16x16 tensor-core fragments (weights read from device memory / L2, the
+row tile's bf16 activations in shared memory), and accumulates its sums,
+Gram, dW, da and db in a partial slot of its own; a second launch from the
+same source sums the slots in a fixed order. No float atomics: two runs are
+bit-identical. Bound: the bf16 products at 989 TFLOP/s (about 2.5 TFLOP per
+training step over the three levels) against the f32 rows read from
+device memory; wgmma, TMA and register-resident weight-gradient sums are
+later work.
+
+Left out: the ``axis_name`` / ``shard_map`` psum of the moments (SyncBN
+over a data-parallel mesh), which waits for the port's DDP. The grouped
+rows are taken as ``(R, C)`` row-major, as ``ball_group`` and
+``group_points`` produce them: the ``(C, R)`` transpose of the TPU kernels
+exists only for Mosaic's lane padding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sceneverse_tpu_torch.ops import _build
+from sceneverse_tpu_torch.ops.sa_forward import _bf16
+
+_MAX_SMEM = 227 * 1024
+_TILE_ROWS = (64, 32, 16)
+_MODES = {"stats": 0, "pool": 1, "stats_bwd": 2, "pool_bwd": 3}
+# device pointers after the sizes, in the order of ``sv_sa_train``
+_OUTS = ("sum", "gram", "pooled", "arg", "dsym", "dS", "dpool", "argin",
+         "dx", "dw", "ds", "part_a", "part_b")
+# row-group quantum of the TPU kernels' accumulators (``_ACC_ROWS``): the
+# shape gate of the fused route
+_ACC_ROWS = 8
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 operands, f32 accumulation (exact products of bf16 values)."""
+    return _bf16(x) @ _bf16(w)
+
+
+def _ceil16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+# --------------------------------------------------------------- plain twins
+def chain_plain(x, params, upto):
+    """[h_1 .. h_upto], each (R, H_j) f32: h = relu(bf16(in) @ bf16(W) * a
+    + b), ``in`` the rows for layer 1 and h_{j-1} after (``_chain_fwd``)."""
+    hs, h = [], x
+    for w, a, b in params[:upto]:
+        h = torch.relu(_dot(h, w) * a + b)
+        hs.append(h)
+    return hs
+
+
+def mlp_stats_plain(x, params, upto):
+    """(sum bf16(h_upto) (H,), bf16(h)^T bf16(h) (H, H)), f32 sums."""
+    hb = _bf16(chain_plain(x, params, upto)[-1])
+    return hb.sum(0), hb.t() @ hb
+
+
+def _chain_bwd_plain(x, params, hs, d, nlayers):
+    """``_chain_bwd_block``: cotangent d of h_nlayers back to the rows;
+    returns (dx, [(dW, da, db)] per layer)."""
+    grads = [None] * nlayers
+    for j in range(nlayers - 1, -1, -1):
+        w, a, b = params[j]
+        inp = x if j == 0 else hs[j - 1]
+        u = _dot(inp, w)
+        dz = torch.where(u * a + b > 0, d, 0.0)
+        du = dz * a
+        grads[j] = (_bf16(inp).t() @ _bf16(du), (dz * u).sum(0), dz.sum(0))
+        d = _bf16(du) @ _bf16(w).t()
+    return d, grads
+
+
+def mlp_stats_bwd_plain(x, params, upto, dS, dG):
+    """VJP of ``mlp_stats_plain``: dh = dS + bf16(h) @ bf16(dG + dG^T)."""
+    hs = chain_plain(x, params, upto)
+    d = dS + _dot(hs[-1], dG + dG.t())
+    return _chain_bwd_plain(x, params, hs, d, upto)
+
+
+def mlp_pool_plain(x, params, ns):
+    """Max over each center's ``ns`` consecutive rows of the f32 h3, and
+    the first slot that attains it (int32)."""
+    h3 = chain_plain(x, params, 3)[-1]
+    g = h3.reshape(-1, ns, h3.shape[-1])
+    mx = g.amax(1)
+    slot = torch.arange(ns, device=x.device)[None, :, None]
+    arg = torch.where(g == mx[:, None], slot, ns).amin(1)
+    return mx, arg.to(torch.int32)
+
+
+def mlp_pool_bwd_plain(x, params, ns, dpooled, arg):
+    """VJP of ``mlp_pool_plain``: d_pooled goes to the saved argmax slot."""
+    hs = chain_plain(x, params, 2)
+    H3 = params[2][0].shape[1]
+    slot = torch.arange(ns, device=x.device)[None, :, None]
+    dh3 = torch.where(slot == arg[:, None, :].long(), dpooled[:, None, :],
+                      0.0).reshape(-1, H3)
+    return _chain_bwd_plain(x, params, hs, dh3, 3)
+
+
+# ------------------------------------------------------------ kernel wrappers
+def _lib():
+    lib = _build.load_library("sa_train")
+    if not hasattr(lib, "_bound"):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.plan_fn = _build.bind(lib, "sv_sa_train_smem",
+                                  [I, I, I, I, I, I, I])
+        lib.run_fn = _build.bind(lib, "sv_sa_train",
+                                 [I, P, I, I, I, I, I] + [P] * 9 + [I] * 6
+                                 + [P] * len(_OUTS) + [P])
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _operands(name, x, params, nlayers):
+    """Kernel operands: bf16 (C_j, H_j) weights (W1 zero-padded to a
+    multiple of 16 rows) and f32 scale / shift; raises on what the kernel
+    does not take."""
+    _build.require_cuda(x, f"{name}.x", (torch.float32,), 2)
+    k = x.shape[1]
+    ops, hs = [], []
+    for j, (w, a, b) in enumerate(params[:nlayers]):
+        if not w.is_cuda or w.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: W{j + 1} must be a CUDA f32 or bf16 "
+                            f"tensor, got {w.dtype} on {w.device}")
+        H = w.shape[1]
+        if w.dim() != 2 or w.shape[0] != k or H % 16 or H > 1024:
+            raise ValueError(f"{name}: W{j + 1} {tuple(w.shape)} must be "
+                             f"({k}, H) with H a multiple of 16, <= 1024")
+        for t, n in ((a, "a"), (b, "b")):
+            _build.require_cuda(t, f"{name}.{n}{j + 1}", (torch.float32,), 1)
+            if t.shape[0] != H:
+                raise ValueError(f"{name}: {n}{j + 1} must be ({H},)")
+        wb = w.to(torch.bfloat16)
+        if j == 0:
+            wb = torch.cat([wb, wb.new_zeros(_ceil16(k) - k, H)])
+        ops += [wb.contiguous(), a.contiguous(), b.contiguous()]
+        hs.append(H)
+        k = H
+    return ops + [None] * (9 - len(ops)), hs + [0] * (3 - len(hs))
+
+
+def _plan(lib, mode, x, hs, upto, ns):
+    """(rows per tile, blocks, shared-memory bytes)."""
+    R, C = x.shape
+    for tm in _TILE_ROWS:
+        if ns and tm % ns:
+            continue
+        smem = lib.plan_fn(_MODES[mode], C, upto, *hs, tm)
+        if smem <= _MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"sa_{mode}: widths {hs} (ns={ns}) exceed shared "
+                         "memory at every tile height")
+    tiles = -(-R // tm)
+    blocks = min(tiles, _sm_count(x.device.index or 0)
+                 * max(1, _MAX_SMEM // smem))
+    return tm, blocks, smem
+
+
+def _launch(mode, x, ops, hs, upto, ns, plan, outs, need_dx=False):
+    """One main launch (per-block partials) and its fixed-order reductions,
+    counted once."""
+    tm, blocks, smem = plan
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = _lib().run_fn(
+        _MODES[mode], x.data_ptr(), x.shape[0], x.shape[1], upto, ns,
+        int(need_dx), *[ptr(t) for t in ops], *hs, tm, blocks, smem,
+        *[ptr(outs.get(k)) for k in _OUTS], _build.stream_ptr(x))
+    _build.LAUNCHES[f"sa_{mode}"] += 1
+    _build.check(code, f"sa_{mode}")
+
+
+def sa_stats(x, params, upto):
+    """(sum bf16(h_upto), Gram of bf16(h_upto)) over all rows."""
+    if not x.is_cuda:
+        return mlp_stats_plain(x, params, upto)
+    if upto not in (1, 2, 3):
+        raise ValueError(f"sa_stats: upto={upto}")
+    ops, hs = _operands("sa_stats", x, params, upto)
+    H = hs[upto - 1]
+    plan = tm, blocks, _ = _plan(_lib(), "stats", x, hs, upto, 0)
+    dev = x.device
+    outs = {"sum": torch.empty(H, device=dev),
+            "gram": torch.empty((H, H), device=dev),
+            "part_a": torch.empty(blocks * (tm // 16) * H, device=dev),
+            "part_b": torch.empty(blocks * H * H, device=dev)}
+    _launch("stats", x, ops, hs, upto, 0, plan, outs)
+    return outs["sum"], outs["gram"]
+
+
+def _bwd_outs(x, hs, nlayers, tm, blocks, need_dx):
+    dev = x.device
+    kin = [_ceil16(x.shape[1])] + hs[:nlayers - 1]
+    dw_len = sum(k * h for k, h in zip(kin, hs[:nlayers]))
+    ds_len = 2 * sum(hs[:nlayers])
+    outs = {"dw": torch.empty(dw_len, device=dev),
+            "ds": torch.empty(ds_len, device=dev),
+            "part_a": torch.empty(blocks * dw_len, device=dev),
+            "part_b": torch.empty(blocks * (tm // 16) * ds_len, device=dev)}
+    if need_dx:
+        outs["dx"] = torch.empty_like(x)
+    return outs, kin
+
+
+def _split_grads(outs, kin, hs, nlayers, C):
+    grads, ow, os_ = [], 0, 0
+    for j in range(nlayers):
+        k, h = kin[j], hs[j]
+        dw = outs["dw"][ow:ow + k * h].view(k, h)
+        grads.append((dw[:C] if j == 0 else dw, outs["ds"][os_:os_ + h],
+                      outs["ds"][os_ + h:os_ + 2 * h]))
+        ow += k * h
+        os_ += 2 * h
+    return outs.get("dx"), grads
+
+
+def sa_stats_bwd(x, params, upto, dS, dG, need_dx=True):
+    """VJP of ``sa_stats``: (dx or None, [(dW, da, db)] for layers 1..upto)."""
+    if not x.is_cuda:
+        dx, grads = mlp_stats_bwd_plain(x, params, upto, dS, dG)
+        return (dx if need_dx else None), grads
+    ops, hs = _operands("sa_stats_bwd", x, params, upto)
+    H = hs[upto - 1]
+    for t, shape, n in ((dS, (H,), "dS"), (dG, (H, H), "dG")):
+        _build.require_cuda(t, f"sa_stats_bwd.{n}", (torch.float32,), len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"sa_stats_bwd: {n} must be {shape}")
+    plan = tm, blocks, _ = _plan(_lib(), "stats_bwd", x, hs, upto, 0)
+    outs, kin = _bwd_outs(x, hs, upto, tm, blocks, need_dx)
+    outs["dsym"] = (dG + dG.t()).to(torch.bfloat16).contiguous()
+    outs["dS"] = dS.contiguous()
+    _launch("stats_bwd", x, ops, hs, upto, 0, plan, outs, need_dx)
+    return _split_grads(outs, kin, hs, upto, x.shape[1])
+
+
+def _check_ns(name, x, ns):
+    if ns < 1 or x.shape[0] % ns:
+        raise ValueError(f"{name}: {x.shape[0]} rows are not whole centers "
+                         f"of {ns}")
+    if ns % 16 or ns > _TILE_ROWS[0]:
+        raise ValueError(f"{name}: ns={ns} must be a multiple of 16, <= "
+                         f"{_TILE_ROWS[0]}")
+
+
+def sa_pool(x, params, ns):
+    """(pooled (R // ns, H3) f32, argmax slot (R // ns, H3) int32)."""
+    if not x.is_cuda:
+        return mlp_pool_plain(x, params, ns)
+    ops, hs = _operands("sa_pool", x, params, 3)
+    _check_ns("sa_pool", x, ns)
+    n = x.shape[0] // ns
+    outs = {"pooled": torch.empty((n, hs[2]), device=x.device),
+            "arg": torch.empty((n, hs[2]), device=x.device,
+                               dtype=torch.int32)}
+    _launch("pool", x, ops, hs, 3, ns, _plan(_lib(), "pool", x, hs, 3, ns),
+            outs)
+    return outs["pooled"], outs["arg"]
+
+
+def sa_pool_bwd(x, params, ns, dpooled, arg, need_dx=True):
+    """VJP of ``sa_pool`` through the saved argmax."""
+    if not x.is_cuda:
+        dx, grads = mlp_pool_bwd_plain(x, params, ns, dpooled, arg)
+        return (dx if need_dx else None), grads
+    ops, hs = _operands("sa_pool_bwd", x, params, 3)
+    _check_ns("sa_pool_bwd", x, ns)
+    shape = (x.shape[0] // ns, hs[2])
+    _build.require_cuda(dpooled, "sa_pool_bwd.dpooled", (torch.float32,), 2)
+    _build.require_cuda(arg, "sa_pool_bwd.arg", (torch.int32,), 2)
+    if tuple(dpooled.shape) != shape or tuple(arg.shape) != shape:
+        raise ValueError(f"sa_pool_bwd: dpooled and arg must be {shape}")
+    plan = tm, blocks, _ = _plan(_lib(), "pool_bwd", x, hs, 3, ns)
+    outs, kin = _bwd_outs(x, hs, 3, tm, blocks, need_dx)
+    outs["dpool"], outs["argin"] = dpooled, arg
+    _launch("pool_bwd", x, ops, hs, 3, ns, plan, outs, need_dx)
+    return _split_grads(outs, kin, hs, 3, x.shape[1])
+
+
+# ------------------------------------------------------------- autograd ops
+def _flat(params):
+    return [t for layer in params for t in layer]
+
+
+def _unflat(flat):
+    return tuple(tuple(flat[i:i + 3]) for i in range(0, len(flat), 3))
+
+
+def _param_grads(params, grads, nlayers):
+    """Gradients in the parameters' types; layers beyond ``nlayers`` get
+    zero cotangents (JAX ``sa_train.py:391-395``)."""
+    out = []
+    for j, (w, a, b) in enumerate(params):
+        if j < nlayers:
+            dw, da, db = grads[j]
+            out += [dw.to(w.dtype), da.to(a.dtype), db.to(b.dtype)]
+        else:
+            out += [torch.zeros_like(w), torch.zeros_like(a),
+                    torch.zeros_like(b)]
+    return out
+
+
+class _MlpStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, upto, *flat):
+        with torch.autocast(x.device.type, enabled=False):
+            s, g = sa_stats(x, _unflat(flat), upto)
+        ctx.save_for_backward(x, *flat)
+        ctx.upto = upto
+        return s, g
+
+    @staticmethod
+    def backward(ctx, dS, dG):
+        x, *flat = ctx.saved_tensors
+        params, upto = _unflat(flat), ctx.upto
+        H = params[upto - 1][0].shape[1]
+        dS = x.new_zeros(H) if dS is None else dS.float()
+        dG = x.new_zeros((H, H)) if dG is None else dG.float()
+        with torch.autocast(x.device.type, enabled=False):
+            dx, grads = sa_stats_bwd(x, params, upto, dS.contiguous(),
+                                     dG.contiguous(),
+                                     need_dx=ctx.needs_input_grad[0])
+        return (dx, None, *_param_grads(params, grads, upto))
+
+
+class _MlpPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ns, *flat):
+        with torch.autocast(x.device.type, enabled=False):
+            pooled, arg = sa_pool(x, _unflat(flat), ns)
+        ctx.save_for_backward(x, arg, *flat)
+        ctx.ns = ns
+        ctx.mark_non_differentiable(arg)
+        return pooled, arg
+
+    @staticmethod
+    def backward(ctx, dpooled, _darg):
+        x, arg, *flat = ctx.saved_tensors
+        params = _unflat(flat)
+        if dpooled is None:
+            dpooled = x.new_zeros((arg.shape[0], arg.shape[1]))
+        with torch.autocast(x.device.type, enabled=False):
+            dx, grads = sa_pool_bwd(x, params, ctx.ns,
+                                    dpooled.float().contiguous(), arg,
+                                    need_dx=ctx.needs_input_grad[0])
+        return (dx, None, *_param_grads(params, grads, 3))
+
+
+def mlp_stats(x, params, upto: int):
+    """Sum and Gram of bf16(h_upto) over the rows of x (R, C); params is a
+    tuple of (W (C_j, H_j), a (H_j,), b (H_j,))."""
+    return _MlpStats.apply(x, upto, *_flat(params))
+
+
+def mlp_pool(x, params, ns: int):
+    """(pooled (R // ns, H3), argmax slot int32) of the 3-layer chain."""
+    return _MlpPool.apply(x, ns, *_flat(params))
+
+
+# ---------------------------------------------------------------- composite
+def fold_moments(w: torch.Tensor, mean_in: torch.Tensor,
+                 gram_in: torch.Tensor, scale, bias, eps: float):
+    """Train-mode BatchNorm of ``x @ w`` from the input moments: w (C, H)
+    f32, mean_in (C,), gram_in E[x x^T] (C, C). Returns (a, b, mean_h,
+    var_h) with ``BN(x @ w) = (x @ w) * a + b``; gradients flow through all
+    four (JAX ``sa_train.py:527-541``, ``pointnet.py:189-208``)."""
+    mean_h = mean_in @ w
+    var_h = torch.clamp_min(
+        torch.einsum("ch,cd,dh->h", w, gram_in, w) - mean_h * mean_h, 0.0)
+    a = torch.rsqrt(var_h + eps)
+    if scale is not None:
+        a = a * scale
+    b = -mean_h * a
+    if bias is not None:
+        b = b + bias
+    return a, b, mean_h, var_h
+
+
+def fused_trainable_sa_fn(x, convs, bns, ns: int):
+    """Rows x (R, C) (R = centers * ns, a center's rows consecutive);
+    convs (W1, W2, W3), W_j (C_j, H_j); bns[j] = (scale, bias, eps).
+
+    Returns (pooled (R // ns, H3) f32, ((mean_h, var_h) per layer)) for the
+    running-statistics updates (JAX ``sa_train.py:505-565``, without the
+    cross-device psum)."""
+    with torch.autocast(x.device.type, enabled=False):
+        R = x.shape[0]
+        x32 = x.float()
+
+        def fold(j, s, g):
+            scale, bias, eps = bns[j]
+            return fold_moments(convs[j].float(), s / R, g / R, scale, bias,
+                                eps)
+
+        a1, b1, mh1, vh1 = fold(0, x32.sum(0), x32.t() @ x32)
+        p1 = ((convs[0], a1, b1),)
+        a2, b2, mh2, vh2 = fold(1, *mlp_stats(x, p1, 1))
+        p2 = p1 + ((convs[1], a2, b2),)
+        a3, b3, mh3, vh3 = fold(2, *mlp_stats(x, p2, 2))
+        pooled, _ = mlp_pool(x, p2 + ((convs[2], a3, b3),), ns)
+    return pooled, ((mh1, vh1), (mh2, vh2), (mh3, vh3))
+
+
+def supported(G: int, m: int, ns: int) -> bool:
+    """JAX ``sa_train.supported`` (:568-574) on one device: the centers
+    come in whole groups of 8."""
+    return (G * m) % _ACC_ROWS == 0

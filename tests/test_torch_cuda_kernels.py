@@ -10,7 +10,9 @@ arithmetic, another summation order); bf16 2e-2 (an element on a bf16
 rounding boundary may land one step, 2^-8, apart); SA 1e-2 (bf16 weights and
 activations on both sides); FPS and ball-query indices exactly equal;
 ball_group's grouped rows exactly equal (the same gather, bf16 rounding and
-f32 subtraction on both sides)."""
+f32 subtraction on both sides); sa_train: the tolerances of chip_smoke.py's
+SA_TRAIN_TOL (its comment gives the reasons), argmax equal but at
+near-ties, and every kernel bit-identical over two runs."""
 
 import math
 
@@ -132,6 +134,111 @@ def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate):
             assert _rel(a, b) <= tol
 
 
+def _sa_train_case(dev, R, dims, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((R, dims[0]), generator=g).to(dev)
+    params = tuple(
+        ((torch.randn((k, h), generator=g) / math.sqrt(k)).to(dev),
+         (torch.rand(h, generator=g) + 0.5).to(dev),
+         (torch.randn(h, generator=g) * 0.1).to(dev))
+        for k, h in zip(dims[:-1], dims[1:]))
+    return g, x, params
+
+
+def _same_twice(fn):
+    import chip_smoke
+
+    a, b = fn(), fn()
+    ta, tb = chip_smoke._tensors(a), chip_smoke._tensors(b)
+    assert len(ta) == len(tb) and all(torch.equal(p, q)
+                                      for p, q in zip(ta, tb))
+    return a
+
+
+@pytest.mark.parametrize("R,ns,dims,need_dx", [
+    (16 * 37, 16, [6, 16, 16, 32], True),            # small, ragged tiles
+    (2560 * 32 * 32, 32, [6, 64, 64, 128], False),   # SA1
+    (2560 * 16 * 32, 32, [131, 128, 128, 256], True),  # SA2
+    (2560 * 16, 16, [259, 256, 512, 768], True),     # SA3
+])
+def test_sa_train_kernels_match_plain(dev, R, ns, dims, need_dx):
+    from chip_smoke import SA_TRAIN_TOL as TOL
+    from chip_smoke import check_argmax, check_rows
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import sa_train as st
+
+    g, x, params = _sa_train_case(dev, R, dims)
+    before = dict(_build.LAUNCHES)
+    for upto in (1, 2):
+        H = dims[upto]
+        got = _same_twice(lambda: st.sa_stats(x, params, upto))
+        want = st.mlp_stats_plain(x, params, upto)
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= TOL["sums"]
+        dS = torch.randn(H, generator=g).to(dev)
+        dG = (torch.randn((H, H), generator=g) / H).to(dev)
+        dx, grads = _same_twice(lambda: st.sa_stats_bwd(
+            x, params, upto, dS, dG, need_dx))
+        wdx, wgrads = st.mlp_stats_bwd_plain(x, params, upto, dS, dG)
+        assert (dx is None) != need_dx
+        for a, b in zip(grads, wgrads):
+            for p, q in zip(a, b):
+                assert _rel(p, q) <= TOL["grads"]
+        if need_dx:
+            check_rows("sa_stats_bwd dx", f"R={R}", dx, wdx)
+    pooled, arg = _same_twice(lambda: st.sa_pool(x, params, ns))
+    wpooled, warg = st.mlp_pool_plain(x, params, ns)
+    assert _rel(pooled, wpooled) <= TOL["pooled"]
+    check_argmax(f"R={R}", x, params, ns, pooled, arg, wpooled, warg)
+    dpooled = torch.randn(pooled.shape, generator=g).to(dev)
+    dx, grads = _same_twice(lambda: st.sa_pool_bwd(
+        x, params, ns, dpooled, arg, need_dx))
+    wdx, wgrads = st.mlp_pool_bwd_plain(x, params, ns, dpooled, arg)
+    for a, b in zip(grads, wgrads):
+        for p, q in zip(a, b):
+            assert _rel(p, q) <= TOL["grads"]
+    if need_dx:
+        check_rows("sa_pool_bwd dx", f"R={R}", dx, wdx)
+    torch.cuda.synchronize()
+    for k, n in (("sa_stats", 4), ("sa_stats_bwd", 4), ("sa_pool", 2),
+                 ("sa_pool_bwd", 2)):
+        assert _build.LAUNCHES[k] == before.get(k, 0) + n
+
+
+def test_sa_train_autograd_on_the_card_takes_the_kernels(dev):
+    """The composite on CUDA tensors launches every kernel, and its
+    gradients match the same composite on the CPU (plain twins)."""
+    from sceneverse_tpu_torch.modules.layers.pointnet import (
+        SharedMLP, fused_trainable_sa)
+    from sceneverse_tpu_torch.ops import _build
+
+    torch.manual_seed(0)
+    mlp = SharedMLP([6, 16, 16, 32]).train()
+    grouped = torch.randn((8, 4, 16, 6))
+    outs = {}
+    for d in ("cpu", dev):
+        m = mlp.to(d)
+        m.zero_grad()
+        x = grouped.to(d).detach().requires_grad_()
+        before = dict(_build.LAUNCHES)
+        y = fused_trainable_sa(x, m)
+        y.sum().backward()
+        # copies: moving the module next moves its .grad in place
+        outs[str(d)] = tuple(t.detach().cpu().clone() for t in (
+            y, x.grad, m.layer0.conv.weight.grad))
+        launched = {k: _build.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("sa_stats", "sa_stats_bwd", "sa_pool",
+                              "sa_pool_bwd")}
+        assert launched == ({k: 0 for k in launched} if d == "cpu" else
+                            {"sa_stats": 2, "sa_stats_bwd": 2, "sa_pool": 1,
+                             "sa_pool_bwd": 1})
+    (y0, dx0, dw0), (y1, dx1, dw1) = outs["cpu"], outs[str(dev)]
+    # the same rounding points on both devices, sums in another order
+    # (measured 2e-7 / 2e-6 / 3e-6 at this size)
+    for a, b in ((y1, y0), (dw1, dw0), (dx1, dx0)):
+        assert _rel(a, b) <= 1e-3
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     from sceneverse_tpu_torch.ops import mha
     from sceneverse_tpu_torch.ops import sample_group as sg
@@ -153,3 +260,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.randn((2, 8, 48 * 2), device=dev)
     with pytest.raises(ValueError):  # head width 48 not instantiated
         mha.mha_fwd(q, q, q, pad, None, None, 2, 0.25)
+
+    from sceneverse_tpu_torch.ops import sa_train as st
+
+    _, x, params = _sa_train_case(dev, 64, [6, 16, 16, 32])
+    with pytest.raises(TypeError):  # bf16 rows
+        st.sa_stats(x.to(torch.bfloat16), params, 1)
+    with pytest.raises(ValueError):  # width 24, not a multiple of 16
+        _, x2, p2 = _sa_train_case(dev, 64, [6, 24, 16, 32])
+        st.sa_stats(x2, p2, 1)
+    with pytest.raises(ValueError):  # W1 that does not take 6 channels
+        st.sa_pool(x[:, :5].contiguous(), params, 16)
+    with pytest.raises(ValueError):  # ns not a multiple of 16
+        st.sa_pool(x, params, 8)
+    with pytest.raises(ValueError):  # rows not whole centers
+        st.sa_pool(x[:40].contiguous(), params, 16)
+    pooled, arg = st.sa_pool(x, params, 16)
+    with pytest.raises(ValueError):  # argmax of another shape
+        st.sa_pool_bwd(x, params, 16, pooled, arg[:2].contiguous())
+    with pytest.raises(TypeError):  # argmax not int32
+        st.sa_pool_bwd(x, params, 16, pooled, arg.long())
+    with pytest.raises(ValueError):  # dG not (H, H)
+        st.sa_stats_bwd(x, params, 1, torch.zeros(16, device=dev),
+                        torch.zeros((16, 8), device=dev))
