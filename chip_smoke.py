@@ -15,19 +15,28 @@ Phases (any failure exits non-zero; nothing is caught):
      backward for the MHA kernels; timed here, never called by the port),
      and the least time the card could take (``bound_ms``). The four
      ``sa_train`` kernels run at SA1, SA2 and SA3 of the fused slice and
-     must give bit-identical outputs twice.
+     must give bit-identical outputs twice; so must ``sa_dense_pool`` (SA2
+     shapes) and ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
+     without the bias ``ab``; SDPA as their library yardstick).
   4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
      (768-d, 80 objects x 1024 points, 50 + 300 tokens, batch 32): train
      steps, val and test eval, with the frozen PointNet++, unfrozen
      (``model.vision.args.freeze=False``: trainable PointNet++, train-mode
-     BatchNorm), and unfrozen with ``SCENEVERSE_BN_FOLD=on`` and
+     BatchNorm), unfrozen with ``SCENEVERSE_BN_FOLD=on`` and
      ``SCENEVERSE_SA_TRAIN_FUSED=on`` set for that slice only (every SA
-     level through the fused ``sa_train`` kernels). Launch counters are
-     reset just before each and read just after; every kernel of each path
-     must have launched, the fused slice's ``sa_*`` kernels exactly as often
-     per train step as three fused levels need; the unfrozen runs must move
-     every PointNet++ weight and BatchNorm statistic.
-  5. prints the kernel table as one JSON line, the card line, and last
+     level through the fused ``sa_train`` kernels), and frozen in the JAX
+     package's exact mode (``EXACT_ENV``: no fused MHA, flash attention in
+     eval, the batched SA2 stage). Launch counters are reset just before
+     each and read just after; every kernel of each path must have
+     launched, the fused slice's ``sa_*`` kernels exactly as often per
+     train step as three fused levels need, the exact slice's kernels
+     exactly as often per forward and per eval batch as its path needs
+     (``check_exact_launches``); the unfrozen runs must move every
+     PointNet++ weight and BatchNorm statistic.
+  5. entry: ``run_torch.main`` with ``mode=test pretrain_ckpt_path=`` the
+     exact slice's ``best.pth`` loads every tensor and reproduces that
+     slice's test metrics.
+  6. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
@@ -35,6 +44,7 @@ The device-time breakdown of the same slices is ``profile_torch.py``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -87,6 +97,14 @@ SA_TRAIN_TOL = {"sums": 1e-3, "grads": 1e-2, "pooled": 1e-2, "rows": 1e-2,
 FUSED_ENV = {"SCENEVERSE_BN_FOLD": "on", "SCENEVERSE_SA_TRAIN_FUSED": "on"}
 SA_TRAIN_PER_STEP = {"sa_stats": 6, "sa_stats_bwd": 6, "sa_pool": 3,
                      "sa_pool_bwd": 3}
+# the JAX package's exact mode for evaluating checkpoints: no fused MHA,
+# flash attention where dropout is inactive (eval), the batched SA2 stage.
+# flash_fwd runs once per non-spatial attention layer of an eval batch:
+# utterance BERT 4 + caption BERT 3 (its [CLS]-only layer is plain) +
+# unified encoder 4; the spatial 'cond' layers take the plain path
+EXACT_ENV = {"SCENEVERSE_FUSED_MHA": "off", "SCENEVERSE_FLASH_ATTN": "on",
+             "SCENEVERSE_SA2_BATCHED": "on"}
+FLASH_PER_EVAL_BATCH = 11
 PATHS = {
     "frozen": ([], ("fps", "sa_group_mlp_pool", "mha_fwd", "mha_bwd"), {}),
     "unfrozen": (["model.vision.args.freeze=False"],
@@ -94,6 +112,8 @@ PATHS = {
     "unfrozen_fused": (["model.vision.args.freeze=False"],
                        ("fps", "ball_group", "mha_fwd", "mha_bwd",
                         *SA_TRAIN_PER_STEP), FUSED_ENV),
+    "frozen_exact": ([], ("fps", "sa_group_mlp_pool", "sa_dense_pool",
+                          "flash_fwd"), EXACT_ENV),
 }
 # H100 SXM: HBM bytes/s and peak FLOP/s by operand type (CUDA-core f32,
 # dense bf16 tensor cores), from the H100 SXM datasheet
@@ -119,6 +139,14 @@ SOURCES = {
                 "sceneverse_tpu/ops/pallas/sa_train.py:210"),
     "sa_pool_bwd": ("sceneverse_tpu_torch/csrc/sa_train.cu",
                     "sceneverse_tpu/ops/pallas/sa_train.py:232"),
+    "sa_dense_pool": ("sceneverse_tpu_torch/csrc/sa_dense.cu",
+                      "sceneverse_tpu/ops/pallas/sa_forward.py:98"),
+    # the library's flash-attention kernels (forward; through its custom
+    # VJP the dk/dv and dq backward kernels), called here in the repo
+    "flash_fwd": ("sceneverse_tpu_torch/csrc/flash_attn.cu",
+                  "sceneverse_tpu/ops/pallas/attention.py:105"),
+    "flash_bwd": ("sceneverse_tpu_torch/csrc/flash_attn.cu",
+                  "sceneverse_tpu/ops/pallas/attention.py:105"),
 }
 
 
@@ -297,8 +325,113 @@ def phase_sa(table):
                       cuda_ms(lambda: sa.sa_group_mlp_pool_plain(
                           pts, ctr, *ops, radius=r, nsample=ns), reps=3),
                       SA_TOL, bnd)
+        if ns >= N:  # SA2: the dense stage of the SA2_BATCHED route
+            for label, ctr in (("", got_xyz), (" +empty", centers)):
+                check_sa_dense(table, tag + label, pts, ctr, ops, r, spec)
         # next level consumes this level's output, as PointNetPP does
         pts = torch.cat([got_xyz, got], -1).contiguous()
+
+
+def check_sa_dense(table, tag, pts, ctr, ops, r, spec):
+    """``sa_dense_pool`` twice (bit-identical) and against its twin."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    got = sa.sa_dense_pool(pts, ctr, *ops, radius=r)
+    if not torch.equal(got, sa.sa_dense_pool(pts, ctr, *ops, radius=r)):
+        raise AssertionError(f"sa_dense_pool {tag}: two runs differ")
+    want = sa.sa_dense_pool_plain(pts, ctr, *ops, radius=r)
+    G, N, C = pts.shape
+    m = ctr.shape[1]
+    # every (center, point) pair through layers 2-3, each point through
+    # layer 1 once, the centering term once per center; bf16 operands
+    flops = 2 * G * (m * N * (spec[1] * spec[2] + spec[2] * spec[3])
+                     + N * C * spec[1] + m * 3 * spec[1])
+    table.add("sa_dense_pool", tag, "f32", *_err(got, want),
+              cuda_ms(lambda: sa.sa_dense_pool(pts, ctr, *ops, radius=r)),
+              cuda_ms(lambda: sa.sa_dense_pool_plain(pts, ctr, *ops,
+                                                     radius=r), reps=3),
+              SA_TOL, bound(nbytes(pts, ctr, want, *ops), flops, "bf16"))
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def phase_flash(table):
+    """``flash_fwd`` and ``flash_bwd`` against their twins at the GPS
+    lengths (B=32, H=12, dh=64; L 50 utterance, 300 caption, 130 unified)
+    with a key-pad mask, with and without the additive bias ``ab``, and a
+    random cotangent. Library yardstick: SDPA with the same boolean key
+    mask (a float mask, ab with -inf at pads, where ab is given), bf16, its
+    backward through autograd; timed only."""
+    import torch
+    import torch.nn.functional as F
+
+    from sceneverse_tpu_torch.ops import attention as fa
+
+    dev = torch.device("cuda")
+    B, H, dh = 32, 12, 64
+    g = torch.Generator(device="cpu").manual_seed(4)
+    bf = torch.bfloat16
+    for L in (50, 300, 130):
+        valid = torch.randint(L // 3, L + 1, (B,), generator=g)
+        pad = (torch.arange(L)[None] >= valid[:, None]).to(dev)
+        q, k, v, do = (torch.randn((B, H, L, dh), generator=g).to(dev, bf)
+                       for _ in range(4))
+        q = (q.float() * 0.125).to(bf)  # the wrapper's pre-scaled q
+        ab_full = torch.randn((B, H, L, L), generator=g).to(dev)
+        for ab in (None, ab_full):
+            tag = f"L={L}" + (" +ab" if ab is not None else "")
+            o, l, m = fa.flash_fwd(q, k, v, pad, ab)
+            o2, l2, m2 = fa.flash_fwd(q, k, v, pad, ab)
+            if not (torch.equal(o, o2) and torch.equal(l, l2)
+                    and torch.equal(m, m2)):
+                raise AssertionError(f"flash_fwd {tag}: two runs differ")
+            ro, rl, rm = fa.flash_fwd_plain(q, k, v, pad, ab)
+            worst = max((_err(o, ro), _err(l, rl), _err(m, rm)),
+                        key=lambda e: e[0] / max(e[1], 1e-30))
+            heads = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            mask = ~pad[:, None, None, :]
+            if ab is not None:
+                mask = ab.masked_fill(pad[:, None, None, :], -torch.inf).to(bf)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*heads, attn_mask=mask)
+
+            lib_fwd = cuda_ms(sdpa)
+            o_lib = sdpa()
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, heads, do, retain_graph=True))
+            del o_lib, heads
+            work = B * H * L * L * dh
+            qkv = nbytes(q, k, v)
+            table.add("flash_fwd", tag, "bf16", *worst,
+                      cuda_ms(lambda: fa.flash_fwd(q, k, v, pad, ab)),
+                      cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, pad, ab)),
+                      TOL["bf16"],
+                      bound(qkv + nbytes(pad, ab, o, l, m), 4 * work, "bf16"),
+                      lib_fwd)
+            bargs = (q, k, v, pad, ab, ro, rl, rm, do)
+            got = fa.flash_bwd(*bargs)
+            again = fa.flash_bwd(*bargs)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if b is not None):
+                raise AssertionError(f"flash_bwd {tag}: two runs differ")
+            want = fa.flash_bwd_plain(*bargs)
+            worst = max((_err(a, b) for a, b in zip(got, want)
+                         if b is not None),
+                        key=lambda e: e[0] / max(e[1], 1e-30))
+            # reads q, k, v, o, do, l, m, pad (+ ab); writes dq, dk, dv
+            # (+ d ab); recomputes q.k and do.v and forms dv, dk, dq
+            table.add("flash_bwd", tag, "bf16", *worst,
+                      cuda_ms(lambda: fa.flash_bwd(*bargs)),
+                      cuda_ms(lambda: fa.flash_bwd_plain(*bargs)),
+                      TOL["bf16"],
+                      bound(2 * qkv + nbytes(ro, do, rl, rm, pad, ab)
+                            + nbytes(ab), 10 * work, "bf16"),
+                      lib_bwd)
+            del o, l, m, o2, l2, m2, ro, rl, rm, got, again, want
+        torch.cuda.empty_cache()
 
 
 def phase_sample_group(table):
@@ -611,20 +744,27 @@ def phase_mha(table):
         torch.cuda.empty_cache()
 
 
-def phase_slice(name, extra, env):
-    """Drive one slice through ``run_torch.main`` with ``env`` set for it
-    alone; returns its launches and its step time, throughput and peak
-    memory."""
+@contextlib.contextmanager
+def gates(env):
+    """``env`` set in ``os.environ`` for the block alone."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return _run_slice(name, extra)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def phase_slice(name, extra, env):
+    """Drive one slice through ``run_torch.main`` with ``env`` set for it
+    alone; returns its launches and its step time, throughput and peak
+    memory."""
+    with gates(env):
+        return _run_slice(name, extra)
 
 
 def _run_slice(name, extra):
@@ -678,6 +818,13 @@ def _run_slice(name, extra):
             if launches.get(k, 0) != n * steps:
                 raise AssertionError(f"{k}: {launches.get(k, 0)} launches, "
                                      f"expected {n} x {steps} train steps")
+    info = {}
+    if name == "frozen_exact":
+        n_eval = sum(len(trainer.data_loaders[s]) for s in ("val", "test"))
+        check_exact_launches(tag, launches, len(hist["train"]), n_eval)
+        info = {"best_pth": str(trainer.ckpt_path / "best.pth"),
+                "test": hist["test"][-1]}
+        info.update(time_eval(tag, trainer))
     if name.startswith("unfrozen"):
         # the same seeded build the trainer made, against what it trained
         cfg = trainer.cfg
@@ -693,8 +840,115 @@ def _run_slice(name, extra):
             f"{len(pnet) - len(same)} of {len(pnet)}")
         if same or len(pnet) != 3 * 3 * 5 + 2:
             raise AssertionError(f"PointNet++ tensors unchanged: {same}")
-    info = {"steady_step_s": step_s, "scenes_per_s": 32 / step_s,
-            "peak_mem_gib": peak, "launches": launches}
+    info.update({"steady_step_s": step_s, "scenes_per_s": 32 / step_s,
+                 "peak_mem_gib": peak, "launches": launches})
+    del result, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def check_exact_launches(tag, launches, n_train, n_eval):
+    """The exact-mode path: no fused MHA at all; SA1 and SA2 through
+    ``sa_group_mlp_pool`` and ``sa_dense_pool`` once per forward; flash
+    attention FLASH_PER_EVAL_BATCH times per eval batch and never in a
+    train step (dropout is active there)."""
+    want = {"mha_fwd": 0, "mha_bwd": 0, "flash_bwd": 0,
+            "sa_group_mlp_pool": n_train + n_eval,
+            "sa_dense_pool": n_train + n_eval,
+            "flash_fwd": FLASH_PER_EVAL_BATCH * n_eval}
+    got = {k: launches.get(k, 0) for k in want}
+    log(f"{tag} exact-mode launches {got} ({n_train} train steps, {n_eval} "
+        "eval batches)")
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def time_eval(tag, trainer):
+    """One more test pass, timed on the host clock around work that ends in
+    a synchronise, with its own peak memory. The run has closed its
+    metrics log, so this pass logs nothing."""
+    import torch
+
+    from sceneverse_tpu_torch.trainer.build import to_device
+
+    trainer.log = lambda *a, **k: None
+    loaders = trainer.data_loaders["test"]
+    loaders = loaders if isinstance(loaders, list) else [loaders]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.test_step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    scenes = sum(len(loader.dataset) for loader in loaders)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the forwards alone, on batches made and moved to the card beforehand
+    batches = [to_device(b, trainer.device) for ld in loaders for b in ld]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        trainer.forward(b)
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    log(f"{tag} test pass {dt:.4f} s for {scenes} scenes -> "
+        f"{scenes / dt:.2f} eval scenes/s (forwards alone {fwd:.4f} s -> "
+        f"{scenes / fwd:.2f} scenes/s), peak memory {peak:.2f} GiB")
+    return {"eval_s": dt, "eval_scenes_per_s": scenes / dt,
+            "eval_forward_s": fwd, "eval_forward_scenes_per_s": scenes / fwd,
+            "eval_peak_mem_gib": peak}
+
+
+def phase_entry(exact):
+    """``run_torch.main`` with ``mode=test pretrain_ckpt_path=`` the
+    frozen_exact slice's ``best.pth``, under the same gates: it loads every
+    tensor of the model's state dict and reproduces the slice's test
+    metrics (``best_result`` aside: the evaluator's best over a run's
+    passes, val included)."""
+    with gates(EXACT_ENV):
+        return _run_entry(exact)
+
+
+def _run_entry(exact):
+    import torch
+
+    import run_torch
+    from sceneverse_tpu_torch.ops import _build
+
+    tag = "[entry mode=test]"
+    args = SLICE_ARGS + [
+        "mode=test", f"pretrain_ckpt_path={exact['best_pth']}",
+        f"base_dir={os.path.join(REPO, 'build', 'smoke_runs', 'exact_test')}"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    result = run_torch.main(args)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer = result["trainer"]
+    n_state = len(trainer.model.state_dict())
+    log(f"{tag} loaded {trainer.pretrain_loaded} of {n_state} tensors; "
+        f"launches {launches}; peak memory {peak:.2f} GiB")
+    if trainer.pretrain_loaded != n_state:
+        raise AssertionError(f"{tag}: loaded {trainer.pretrain_loaded} of "
+                             f"{n_state} tensors")
+    if trainer.history["train"] or list(trainer.data_loaders) != ["test"]:
+        raise AssertionError(f"{tag}: trained or built other loaders")
+    check_exact_launches(tag, launches, 0, len(trainer.data_loaders["test"]))
+    got, want = result["results"], exact["test"]
+    keys = sorted(set(want) - {"best_result"})
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: metrics {sorted(got)} vs {sorted(want)}")
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+              if got[k] != want[k] else 0.0 for k in keys)
+    log(f"{tag} test metrics {got}; max relative difference to the slice's "
+        f"{rel:.3e}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{tag}: test metrics differ by {rel}")
+    info = time_eval(tag, trainer)
+    info.update({"loaded": trainer.pretrain_loaded, "state_tensors": n_state,
+                 "max_rel_diff": rel, "peak_mem_gib": peak,
+                 "launches": launches})
     del result, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -712,13 +966,18 @@ def main():
     phase_sample_group(table)
     phase_mha(table)
     phase_sa_train(table)
+    phase_flash(table)
     slices = {name: phase_slice(name, extra, env)
               for name, (extra, _, env) in PATHS.items()}
+    entry = phase_entry(slices["frozen_exact"])
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]
-        # headline: the heaviest f32 call shape of the main path
-        head = max((r for r in row["shapes"] if r["dtype"] == "f32"),
+        # headline: the heaviest call shape of the main path, f32 where the
+        # kernel has an f32 form (no GPS caller passes flash attention a
+        # bias, so the "+ab" shapes are not main-path shapes)
+        shapes = [r for r in row["shapes"] if "+ab" not in r["shape"]]
+        head = max([r for r in shapes if r["dtype"] == "f32"] or shapes,
                    key=lambda r: r["ms"])
         by_path = {p: s["launches"].get(name, 0) for p, s in slices.items()}
         kernels.append({
@@ -730,7 +989,8 @@ def main():
             "library_ms": head["library_ms"], "shape": head["shape"]})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
-                   "slices": slices, "card": card}, f, indent=1)
+                   "slices": slices, "entry": entry, "card": card}, f,
+                  indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Profile steady train steps of the PyTorch/CUDA port on one CUDA card.
 
-    python3 profile_torch.py [key=value ...] [--fused] [--amp no bf16] [--steps 3]
+    python3 profile_torch.py [key=value ...] [--fused] [--exact] [--eval]
+                             [--amp no bf16] [--steps 3]
 
 (overrides first: ``--amp`` takes every word after it.)
 
@@ -9,7 +10,10 @@ full-width ``synthetic_pretrain`` slice of chip_smoke.py, batch 32; the
 overrides pick another, e.g. ``model.vision.args.freeze=False`` for the
 unfrozen PointNet++; with ``--fused`` as well, the trainable SA levels run
 the fused ``sa_train`` kernels: ``SCENEVERSE_BN_FOLD=on`` and
-``SCENEVERSE_SA_TRAIN_FUSED=on``), takes two warm-up steps on one fixed batch, times
+``SCENEVERSE_SA_TRAIN_FUSED=on``; with ``--exact``, the JAX package's exact
+mode of chip_smoke.py's ``EXACT_ENV``: no fused attention, flash attention
+in eval, the batched SA2 stage), takes two warm-up steps on one fixed
+batch (with ``--eval``: eval forwards on one fixed test batch), times
 ``--steps`` steps, then runs as many under torch.profiler, for each
 ``--amp`` mode (``mixed_precision``). Prints wall ms/step with and without
 the profiler, device kernel time per step, the device busy share of both,
@@ -17,7 +21,8 @@ the host calls that wait on the device (synchronisations, allocations,
 copies) and the device time by kernel family (this port's kernels, GEMMs,
 elementwise and reduction kernels (BatchNorm, ReLU, LayerNorm, GELU),
 other); writes the torch.profiler tables, by device and by host time, to
-``profile_<frozen|unfrozen|unfrozen_fused>_<amp>.txt`` in ``OUT_DIR``. Imports nothing of
+``profile_<frozen|unfrozen>[_fused][_exact][_eval]_<amp>.txt`` in ``OUT_DIR``.
+Imports nothing of
 JAX or of the JAX package.
 """
 
@@ -32,7 +37,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 sys.path.insert(0, REPO)
 
-from chip_smoke import FUSED_ENV, SLICE_ARGS  # noqa: E402
+from chip_smoke import EXACT_ENV, FUSED_ENV, SLICE_ARGS  # noqa: E402
 
 _GEMM = ("gemm", "sgemm", "cutlass", "xmma", "nvjet")
 _ELEMENTWISE = ("elementwise", "reduce_kernel", "norm", "batch_norm")
@@ -40,10 +45,12 @@ _HOST_WAITS = ("Synchronize", "cudaMalloc", "cudaFree", "cudaMemcpy")
 
 
 _SA_TRAIN = ("st_fwd_kernel", "st_bwd_kernel", "st_reduce_kernel")
+_PORT = ("mha_fwd", "mha_bwd", "sa_group", "sa_dense", "ball_group", "fps",
+         "fa_fwd", "fa_dkv", "fa_dq")
 
 
 def family(name: str) -> str:
-    for k in ("mha_fwd", "mha_bwd", "sa_group", "ball_group", "fps"):
+    for k in _PORT:
         if k in name:
             return k
     if any(k in name for k in _SA_TRAIN):
@@ -54,7 +61,7 @@ def family(name: str) -> str:
     return "elementwise" if any(t in low for t in _ELEMENTWISE) else "other"
 
 
-def profile(amp: str, steps: int, overrides: list[str]) -> None:
+def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,20 +74,25 @@ def profile(amp: str, steps: int, overrides: list[str]) -> None:
     tag = "frozen" if cfg.model.vision.args.get("freeze") else "unfrozen"
     if os.environ.get("SCENEVERSE_SA_TRAIN_FUSED") == "on":
         tag += "_fused"
+    if os.environ.get("SCENEVERSE_FUSED_MHA") == "off":
+        tag += "_exact"
     trainer = build_trainer(cfg)
-    batch = to_device(next(iter(trainer.data_loaders["train"])), trainer.device)
+    split = "test" if evaluate else "train"
+    tag += "_eval" if evaluate else ""
+    batch = to_device(next(iter(trainer.data_loaders[split])), trainer.device)
+    step = trainer.forward if evaluate else trainer.train_forward_backward
     for _ in range(2):  # warm-up
-        trainer.train_forward_backward(batch)
+        step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()  # the same steps without the profiler's cost
     for _ in range(steps):
-        trainer.train_forward_backward(batch)
+        step(batch)
     torch.cuda.synchronize()
     bare = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.train_forward_backward(batch)
+            step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     fam, total = {}, 0.0
@@ -125,6 +137,10 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--fused", action="store_true",
                    help="both sa_train gates on (use with freeze=False)")
+    p.add_argument("--exact", action="store_true",
+                   help="the exact-mode gates of chip_smoke.EXACT_ENV")
+    p.add_argument("--eval", action="store_true",
+                   help="eval forwards on a test batch, not train steps")
     p.add_argument("overrides", nargs="*", help="key.sub=value overrides")
     a = p.parse_args(argv)
     import torch
@@ -135,8 +151,10 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     if a.fused:
         os.environ.update(FUSED_ENV)
+    if a.exact:
+        os.environ.update(EXACT_ENV)
     for amp in a.amp:
-        profile(amp, a.steps, a.overrides)
+        profile(amp, a.steps, a.overrides, a.eval)
 
 
 if __name__ == "__main__":

@@ -17,11 +17,15 @@ read backwards:
 Non-``Param`` variables (``text_features``) pass through and load as
 buffers. The input is plain numpy keyed by dotted nnx path: this module
 never sees a JAX object.
+
+``load_torch_pretrain`` loads torch checkpoints (released
+``pytorch_model*.bin`` shards or this package's ``best.pth``) by name.
 """
 
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -71,6 +75,47 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             key = name
         out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
+
+
+def load_torch_pretrain(model: torch.nn.Module, ckpt_path) -> int:
+    """Warm start (JAX ``ckpt/convert.py:189-210``; reference
+    trainer/build.py:174-184): a directory of ``pytorch_model*.bin`` shards,
+    or one file holding a flat state dict or this package's own checkpoint
+    (``BaseTrainer.save``: the state dict under ``"model"``). Non-strict:
+    reports missing and unexpected keys, raises on a shape mismatch before
+    anything is copied, and returns the number of tensors loaded."""
+    path = Path(ckpt_path)
+    if path.is_dir():
+        paths = sorted(path.glob("pytorch_model*.bin"))
+        if not paths:
+            raise FileNotFoundError(f"no pytorch_model*.bin in {path}")
+    else:
+        paths = [path]
+    weights: Dict[str, torch.Tensor] = {}
+    for p in paths:
+        sd = torch.load(p, map_location="cpu", weights_only=True)
+        if isinstance(sd.get("model"), dict):
+            sd = sd["model"]
+        weights.update(sd)
+    own = model.state_dict()
+    unexpected = [k for k in weights if k not in own]
+    mismatched = [f"{k} {tuple(t.shape)} vs {tuple(own[k].shape)}"
+                  for k, t in weights.items()
+                  if k in own and tuple(t.shape) != tuple(own[k].shape)]
+    if mismatched:
+        raise ValueError(f"{path}: shape mismatch: {mismatched}")
+    with torch.no_grad():
+        for k, t in weights.items():
+            if k in own:
+                own[k].copy_(t)
+    missing = [k for k in own if k not in weights]
+    if unexpected:
+        print(f"[convert] {len(unexpected)} unexpected tensors, e.g. "
+              f"{unexpected[:5]}")
+    if missing:
+        print(f"[convert] {len(missing)} tensors not in the checkpoint, e.g. "
+              f"{missing[:5]}")
+    return len(weights) - len(unexpected)
 
 
 def load_jax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray]):

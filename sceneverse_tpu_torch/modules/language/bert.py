@@ -1,10 +1,10 @@
 """4-layer BERT text tower with HF parameter names (port of
 sceneverse_tpu/modules/language/bert.py; reference modules/language/bert.py
-wraps HF ``BertModel``). Self-attention runs through the fused kernel with
-HF's additive pad row ``(1 - mask) * finfo(f32).min``; the ``cls_only``
-final layer (:207-228 there) computes only the [CLS] query row in plain
-torch, as the JAX package runs it outside its kernel. LayerNorm eps 1e-12,
-exact GELU."""
+wraps HF ``BertModel``). Self-attention takes the JAX package's routes
+(``BertSelfAttention.forward``) with HF's additive pad row
+``(1 - mask) * finfo(f32).min``; the ``cls_only`` final layer (:207-228
+there) computes only the [CLS] query row in plain torch, as the JAX package
+runs it outside its kernels. LayerNorm eps 1e-12, exact GELU."""
 
 from __future__ import annotations
 
@@ -17,7 +17,10 @@ from torch import nn
 
 from sceneverse_tpu_torch.modules.build import LANGUAGE_REGISTRY
 from sceneverse_tpu_torch.modules.utils import AttentionSeed, Dropout
-from sceneverse_tpu_torch.ops.mha import fused_mha
+from sceneverse_tpu_torch.ops.attention import flash_enabled, masked_mha
+from sceneverse_tpu_torch.ops.mha import (fused_mha, fused_mha_enabled,
+                                          fused_mha_supported)
+from sceneverse_tpu_torch.ops.softmax import softmax_lowp
 
 
 @dataclass
@@ -64,23 +67,41 @@ class BertSelfAttention(nn.Module):
         self.dropout = Dropout(cfg.attention_probs_dropout_prob)
         self.seed = AttentionSeed()
 
+    def _plain(self, q, k, v, pad_add):
+        """(B, H, Lq, dh) heads: compute-dtype logits, the additive pad row,
+        f32 softmax with a v.dtype residual, probability dropout."""
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(self.head_dim)
+        logits = logits + pad_add[:, None, None, :].to(logits.dtype)
+        return self.dropout(softmax_lowp(logits, v.dtype)) @ v
+
     def forward(self, x, pad_add, q_rows=None):
+        """JAX ``bert.py:87-158``: the fused kernel when its gate is on and
+        takes the layout; else flash attention when probability dropout is
+        inactive and its gate is on; else the plain path. The ``cls_only``
+        query rows always take the plain path."""
         B, L, D = x.shape
         H, dh = self.num_heads, self.head_dim
+        heads = lambda t: t.reshape(B, -1, H, dh).transpose(1, 2)
         if q_rows is not None:
             # [CLS]-only query rows against full-length keys/values
-            q = self.query(x[:, :q_rows]).reshape(B, q_rows, H, dh)
-            k = self.key(x).reshape(B, L, H, dh).transpose(1, 2)
-            v = self.value(x).reshape(B, L, H, dh).transpose(1, 2)
-            logits = (q.transpose(1, 2) @ k.transpose(-1, -2)) / math.sqrt(dh)
-            logits = logits + pad_add[:, None, None, :].to(logits.dtype)
-            attn = self.dropout(torch.softmax(logits.float(), -1).to(v.dtype))
-            return (attn @ v).transpose(1, 2).reshape(B, q_rows, D)
-        rate = self.dropout.p if self.training else 0.0
-        return fused_mha(self.query(x), self.key(x), self.value(x), H,
-                         pad_additive=pad_add, dropout_rate=rate,
-                         seed=self.seed.draw() if rate > 0.0 else None,
-                         scale=1.0 / math.sqrt(dh))
+            out = self._plain(heads(self.query(x[:, :q_rows])),
+                              heads(self.key(x)), heads(self.value(x)),
+                              pad_add)
+            return out.transpose(1, 2).reshape(B, q_rows, D)
+        q2, k2, v2 = self.query(x), self.key(x), self.value(x)
+        if fused_mha_enabled() and fused_mha_supported(D, H):
+            rate = self.dropout.p if self.training else 0.0
+            return fused_mha(q2, k2, v2, H, pad_additive=pad_add,
+                             dropout_rate=rate,
+                             seed=self.seed.draw() if rate > 0.0 else None,
+                             scale=1.0 / math.sqrt(dh))
+        q, k, v = heads(q2), heads(k2), heads(v2)
+        if (self.dropout.p == 0.0 or not self.training) and flash_enabled():
+            out = masked_mha(q, k, v, pad_add < -1.0,
+                             sm_scale=1.0 / math.sqrt(dh))
+        else:
+            out = self._plain(q, k, v, pad_add)
+        return out.transpose(1, 2).reshape(B, L, D)
 
 
 class BertSelfOutput(nn.Module):

@@ -6,8 +6,9 @@ original SceneVerse torch state dict (``encoder.N.mlps.0.layerK.conv``,
 
 Frozen route (``set_fused_frozen``; eval BatchNorm, no gradients): SA levels
 with a sample count run through the fused SA kernels (``ops/sa_forward.py``,
-:266-301 there); the GroupAll level runs the folded bf16-operand /
-f32-accumulate matmul chain of :307-333.
+:266-301 there), SA2 through the dense stage ``sa_dense_pool`` when
+``SCENEVERSE_SA2_BATCHED`` is on; the GroupAll level runs the folded
+bf16-operand / f32-accumulate matmul chain of :307-333.
 
 Trainable route (:335-402 there): SA1 (N >= 256) samples and groups through
 ``ops/sample_group.py``; smaller levels (SA2) take plain point ops, with FPS
@@ -63,6 +64,14 @@ def _sa_train_fused_enabled() -> bool:
     of ``ops/sa_train.py``, which keeps h1-h3 out of device memory. It stays
     off until a bench on the card shows that it beats the literal route."""
     return _gate("SCENEVERSE_SA_TRAIN_FUSED", "off")
+
+
+def _sa2_batched_enabled() -> bool:
+    """``SCENEVERSE_SA2_BATCHED`` (default off, as in the JAX package): a
+    frozen SA level with fewer than 256 points whose samples take every
+    point (nsample >= N, SA2) runs the dense stage ``sa_dense_pool``
+    instead of ``sa_group_mlp_pool``. Read at call time."""
+    return _gate("SCENEVERSE_SA2_BATCHED", "off")
 
 
 def _bn_bf16() -> bool:
@@ -281,9 +290,12 @@ class PointnetSAModule(nn.Module):
             if len(layers) != 3:
                 raise NotImplementedError("fused SA needs a 3-layer MLP")
             (w1, s1), (w2, s2), (w3, s3) = layers
+            # JAX pointnet.py:284-296 and sa_forward.py:645-646
+            dense = (xyz.shape[1] < 256 and _sa2_batched_enabled()
+                     and self.nsample >= xyz.shape[1])
             pooled, new_xyz = fused_sa_forward(
                 self._points(xyz, features), self.npoint, self.nsample,
-                self.radius, w1, s1, w2, s2, w3, s3)
+                self.radius, w1, s1, w2, s2, w3, s3, dense_batched=dense)
             return new_xyz, pooled
         # GroupAll: folded bf16-operand / f32-accumulate matmul chain
         g = self._cat(xyz, features)

@@ -25,6 +25,10 @@ the CUDA cores, fed from shared memory (no tensor cores yet: wgmma/TMA are
 later work). What the design buys is that no (B, H, L, T) score,
 probability, gate or dropout-mask tensor ever reaches device memory.
 
+Routing (``fused_mha_enabled``, ``fused_mha_supported``) is the JAX
+package's: the gate ``SCENEVERSE_FUSED_MHA`` (default on) and its head
+layout predicate decide whether a layer takes this kernel at all.
+
 Semantics kept from the TPU kernel: packed (B, L, H*dh) heads (head h at
 column h*dh; the TPU's 128-lane block packing is not ported), an f32
 additive pad row even for bf16 inputs (HF's ``finfo(f32).min`` overflows
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -50,6 +55,30 @@ NEG = -1e30
 _MAX_SMEM = 227 * 1024
 _WARPS, _ROWS_PER_WARP = 8, 4
 _DTYPES = (torch.float32, torch.bfloat16)
+_GATE_ENV = "SCENEVERSE_FUSED_MHA"
+
+
+def fused_mha_enabled() -> bool:
+    """``SCENEVERSE_FUSED_MHA`` (default on, as in the JAX package): the
+    towers' attention layers take this fused kernel. ``off`` is the JAX
+    package's exact mode for evaluating reference checkpoints: the layers
+    take the flash kernel (``ops/attention.py``, when its gate is on and
+    dropout is inactive) or the plain attention with ``softmax_lowp``.
+    Read at call time."""
+    return os.environ.get(_GATE_ENV, "on").lower() in ("1", "on", "true")
+
+
+def fused_mha_supported(d_model: int, n_heads: int) -> bool:
+    """The JAX package's routing predicate (``mha.py:97-121`` there): the
+    TPU kernel packs heads into 128-lane blocks and takes D <= 128,
+    dh % 128 == 0, or 128 % dh == 0 with D % 128 == 0; other layouts take
+    the other attention paths. Where this holds and the port's kernel lacks
+    the head width, ``fused_mha`` raises on the card."""
+    if d_model % n_heads:
+        return False
+    dh = d_model // n_heads
+    return (d_model <= 128 or dh % 128 == 0
+            or (128 % dh == 0 and d_model % 128 == 0))
 
 
 # --------------------------------------------------------------- plain twins

@@ -3,7 +3,8 @@ SharedMLP (eval BatchNorm folded) + max-pool.
 
 Port of ``sceneverse_tpu/ops/pallas/sa_forward.py::fused_sa_forward``
 (TPU kernel ``_kernel`` with ``_fps_inline``, and ``_fps_kernel(_t)`` for
-``split_fps``). Two hand-written CUDA kernels (``csrc/sa_kernels.cu``):
+``split_fps``, and ``_kernel_dense_batched`` for ``dense_batched``). Three
+hand-written CUDA kernels (``csrc/sa_kernels.cu``, ``csrc/sa_dense.cu``):
 
 ``fps``
     replaces ``_fps_inline`` / ``_fps_kernel_t``. One block per object, the
@@ -25,6 +26,14 @@ Port of ``sceneverse_tpu/ops/pallas/sa_forward.py::fused_sa_forward``
     device memory; only the pooled (G, m, H3) is written. Bound: the MLP's
     multiply-adds on the CUDA cores (no tensor cores yet; wgmma is later
     work), fed by shared-memory broadcasts of the activations.
+
+``sa_dense_pool`` (``csrc/sa_dense.cu``)
+    replaces ``_kernel_dense_batched``, the SA2 dense stage of the
+    ``SCENEVERSE_SA2_BATCHED`` route: every one of an object's m*N (center,
+    point) pairs through the MLP, no compaction, then the masked max over
+    the points (an empty ball takes pair (c, 0)). One block per object;
+    layers 2-3 on tensor cores (wmma bf16 fragments, f32 accumulation).
+    Bound: the bf16 products. Design notes in the source.
 
 Numerics are the TPU kernel's, not a float32 XLA pipeline's: weights are
 cast to bf16, per-point layer-1 projections round to bf16, activations round
@@ -82,6 +91,32 @@ def _mlp23(g, w2n, a2, b2, w3n, a3, b3):
     return torch.relu((h @ w3n.float()) * a3 + b3)
 
 
+def _layer1(pts, centers, w1n):
+    """Per-point projection bf16(bf16(p) @ w1) (G, N, H1) and centering
+    term bf16(c) @ w1[:3] (G, m, H1), f32 accumulation."""
+    w1f = w1n.float()
+    return _bf16(_bf16(pts) @ w1f), _bf16(centers) @ w1f[:3]
+
+
+def sa_dense_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
+                        radius: float):
+    """Plain twin of the ``sa_dense_pool`` kernel, and the dense branch of
+    ``sa_group_mlp_pool_plain`` (operands as there): every (center, point)
+    pair through the MLP, the max over the in-ball points (strict
+    d2 < r^2); an empty ball takes pair (c, 0)."""
+    with torch.autocast(pts.device.type, enabled=False):
+        pw, cw1 = _layer1(pts, centers, w1n)
+        diff = pts[:, None, :, :3] - centers[:, :, None, :]
+        d2 = _sq3(diff[..., 0], diff[..., 1], diff[..., 2])  # (G, m, N)
+        within = d2 < torch.tensor(radius * radius, dtype=torch.float32)
+        g = _bf16(torch.relu(a1 * (pw[:, None] - cw1[:, :, None]) + b1))
+        h3 = _mlp23(g, w2n, a2, b2, w3n, a3, b3)  # (G, m, N, H3)
+        pooled = torch.where(within[..., None], h3,
+                             torch.full_like(h3, -3.0e38)).amax(dim=2)
+        empty = ~within.any(dim=2)
+        return torch.where(empty[..., None], h3[:, :, 0], pooled)
+
+
 def sa_group_mlp_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3,
                             b3, radius: float, nsample: int):
     """Plain twin of the ``sa_group_mlp_pool`` kernel (same rounding points).
@@ -89,21 +124,11 @@ def sa_group_mlp_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3,
     pts (G, N, C) f32 xyz-first; centers (G, m, 3) f32; w_in (Cin, H) bf16;
     a_i, b_i (H,) f32. Returns pooled (G, m, H3) f32."""
     G, N, _ = pts.shape
+    if nsample >= N:  # dense branch: every in-ball point is a group member
+        return sa_dense_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2,
+                                   w3n, a3, b3, radius)
     with torch.autocast(pts.device.type, enabled=False):
-        w1f = w1n.float()
-        pw = _bf16(_bf16(pts) @ w1f)  # (G, N, H1) per-point projection
-        cw1 = _bf16(centers) @ w1f[:3]  # (G, m, H1) centering term
-        if nsample >= N:
-            # dense branch: every in-ball point is a group member
-            diff = pts[:, None, :, :3] - centers[:, :, None, :]
-            d2 = _sq3(diff[..., 0], diff[..., 1], diff[..., 2])  # (G, m, N)
-            within = d2 < torch.tensor(radius * radius, dtype=torch.float32)
-            g = _bf16(torch.relu(a1 * (pw[:, None] - cw1[:, :, None]) + b1))
-            h3 = _mlp23(g, w2n, a2, b2, w3n, a3, b3)  # (G, m, N, H3)
-            pooled = torch.where(within[..., None], h3,
-                                 torch.full_like(h3, -3.0e38)).amax(dim=2)
-            empty = ~within.any(dim=2)
-            return torch.where(empty[..., None], h3[:, :, 0], pooled)
+        pw, cw1 = _layer1(pts, centers, w1n)
         idx = ball_query(radius, nsample, pts[..., :3].contiguous(), centers)
         gh = torch.gather(
             pw[:, None].expand(G, idx.shape[1], N, pw.shape[-1]), 2,
@@ -154,33 +179,41 @@ def sa_group_smem_bytes(N, C, m, nsample, hs) -> int:
     return 4 * (floats + ints)
 
 
+def _check_sa(name, pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3):
+    """Raise unless the operands are what the SA kernels take; returns
+    (G, N, C, m, (H1, H2, H3))."""
+    _build.require_cuda(pts, f"{name}.pts", (torch.float32,), 3)
+    _build.require_cuda(centers, f"{name}.centers", (torch.float32,), 3)
+    G, N, C = pts.shape
+    m = centers.shape[1]
+    hs = (w1n.shape[1], w2n.shape[1], w3n.shape[1])
+    for wn, w, cin in (("w1", w1n, C), ("w2", w2n, hs[0]),
+                       ("w3", w3n, hs[1])):
+        _build.require_cuda(w, f"{name}.{wn}", (torch.bfloat16,), 2)
+        if w.shape[0] != cin:
+            raise ValueError(f"{name}.{wn}: {tuple(w.shape)} does not take "
+                             f"{cin} input channels")
+    for tn, t, h in (("a1", a1, hs[0]), ("b1", b1, hs[0]), ("a2", a2, hs[1]),
+                     ("b2", b2, hs[1]), ("a3", a3, hs[2]), ("b3", b3, hs[2])):
+        _build.require_cuda(t, f"{name}.{tn}", (torch.float32,), 1)
+        if t.shape[0] != h:
+            raise ValueError(f"{name}.{tn}: expected ({h},)")
+    if centers.shape[0] != G or centers.shape[2] != 3 or C < 3:
+        raise ValueError(f"{name}: centers must be (G, m, 3)")
+    return G, N, C, m, hs
+
+
 def sa_group_mlp_pool(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
                       radius: float, nsample: int):
     """Ball query + grouping + 3-layer folded MLP + max-pool per center."""
     if not pts.is_cuda:
         return sa_group_mlp_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2,
                                        w3n, a3, b3, radius, nsample)
-    _build.require_cuda(pts, "sa.pts", (torch.float32,), 3)
-    _build.require_cuda(centers, "sa.centers", (torch.float32,), 3)
-    G, N, C = pts.shape
-    m = centers.shape[1]
-    hs = (w1n.shape[1], w2n.shape[1], w3n.shape[1])
-    for name, w, cin in (("w1", w1n, C), ("w2", w2n, hs[0]),
-                         ("w3", w3n, hs[1])):
-        _build.require_cuda(w, f"sa.{name}", (torch.bfloat16,), 2)
-        if w.shape[0] != cin:
-            raise ValueError(f"sa.{name}: {tuple(w.shape)} does not take "
-                             f"{cin} input channels")
-    for name, t, h in (("a1", a1, hs[0]), ("b1", b1, hs[0]), ("a2", a2, hs[1]),
-                       ("b2", b2, hs[1]), ("a3", a3, hs[2]), ("b3", b3, hs[2])):
-        _build.require_cuda(t, f"sa.{name}", (torch.float32,), 1)
-        if t.shape[0] != h:
-            raise ValueError(f"sa.{name}: expected ({h},)")
+    G, N, C, m, hs = _check_sa("sa_group_mlp_pool", pts, centers, w1n, a1,
+                               b1, w2n, a2, b2, w3n, a3, b3)
     if hs not in _SUPPORTED_WIDTHS:
         raise ValueError(f"sa_group_mlp_pool: widths {hs} not instantiated "
                          f"(supported {_SUPPORTED_WIDTHS})")
-    if centers.shape[0] != G or centers.shape[2] != 3 or C < 3:
-        raise ValueError("sa_group_mlp_pool: centers must be (G, m, 3)")
     if N > 65535 or nsample < 1:
         raise ValueError("sa_group_mlp_pool: N or nsample out of range")
     smem = sa_group_smem_bytes(N, C, m, nsample, hs)
@@ -203,6 +236,52 @@ def sa_group_mlp_pool(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
     return pooled
 
 
+def _dense_lib():
+    lib = _build.load_library("sa_dense")
+    if not hasattr(lib, "_bound"):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.smem_fn = _build.bind(lib, "sv_sa_dense_smem", [I] * 6)
+        lib.dense_fn = _build.bind(
+            lib, "sv_sa_dense_pool",
+            [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P])
+        lib._bound = True
+    return lib
+
+
+def sa_dense_pool(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
+                  radius: float):
+    """Dense SA stage: every (center, point) pair through the folded MLP,
+    the max over the in-ball points, pair (c, 0) for an empty ball.
+    Operands as ``sa_group_mlp_pool``; widths must be multiples of 16."""
+    if not pts.is_cuda:
+        return sa_dense_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2,
+                                   w3n, a3, b3, radius)
+    G, N, C, m, hs = _check_sa("sa_dense_pool", pts, centers, w1n, a1, b1,
+                               w2n, a2, b2, w3n, a3, b3)
+    if any(h % 16 for h in hs):
+        raise ValueError(f"sa_dense_pool: widths {hs} must be multiples of "
+                         "16 (tensor-core fragments)")
+    pooled = torch.empty((G, m, hs[2]), device=pts.device,
+                         dtype=torch.float32)
+    if G == 0:
+        return pooled
+    lib = _dense_lib()
+    smem = lib.smem_fn(N, C, m, *hs)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"sa_dense_pool: {smem} B of shared memory needed, "
+                         f"the card has {_MAX_SMEM}")
+    code = lib.dense_fn(
+        pts.data_ptr(), centers.data_ptr(),
+        w1n.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+        w2n.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+        w3n.data_ptr(), a3.data_ptr(), b3.data_ptr(),
+        pooled.data_ptr(), G, N, C, m, *hs, float(radius * radius),
+        _build.stream_ptr(pts))
+    _build.LAUNCHES["sa_dense_pool"] += 1
+    _build.check(code, "sa_dense_pool")
+    return pooled
+
+
 def prepare_weights(w1, s1, w2, s2, w3, s3):
     """Public (H, Cin) kernels + (H, 2) affines -> the kernels' operands:
     natural-layout (Cin, H) bf16 weights and contiguous f32 scale/shift."""
@@ -215,14 +294,22 @@ def prepare_weights(w1, s1, w2, s2, w3, s3):
 
 @torch.no_grad()
 def fused_sa_forward(pts: torch.Tensor, npoint: int, nsample: int,
-                     radius: float, w1, s1, w2, s2, w3, s3):
+                     radius: float, w1, s1, w2, s2, w3, s3,
+                     dense_batched: bool = False):
     """Frozen-SA forward with the JAX package's public contract.
 
     pts (G, N, C) f32 xyz-first; w_i (H_i, Cin_i); s_i (H_i, 2) [scale,
-    shift]. Returns pooled (G, npoint, H3) f32 and new_xyz (G, npoint, 3)."""
+    shift]. ``dense_batched`` (which needs nsample >= N) takes the dense
+    stage ``sa_dense_pool``, the port of ``_kernel_dense_batched``. Returns
+    pooled (G, npoint, H3) f32 and new_xyz (G, npoint, 3)."""
     pts = pts.float().contiguous()
     new_xyz, _ = fps(pts[..., :3].contiguous(), npoint)
     ops = prepare_weights(w1, s1, w2, s2, w3, s3)
-    pooled = sa_group_mlp_pool(pts, new_xyz, *ops, radius=radius,
-                               nsample=nsample)
+    if dense_batched:
+        if nsample < pts.shape[1]:
+            raise ValueError("dense_batched needs nsample >= N")
+        pooled = sa_dense_pool(pts, new_xyz, *ops, radius=radius)
+    else:
+        pooled = sa_group_mlp_pool(pts, new_xyz, *ops, radius=radius,
+                                   nsample=nsample)
     return pooled, new_xyz

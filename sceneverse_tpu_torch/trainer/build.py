@@ -7,7 +7,9 @@ for it. The device is CUDA unless the caller asks for the CPU (the
 ``device`` argument or ``device=cpu`` in the config); with no CUDA card the
 trainer raises instead of falling back. Data comes from the port's datasets
 (``data/build.py::get_dataset``) through a ``torch.utils.data.DataLoader``
-with an explicit seeded generator.
+with an explicit seeded generator. ``mode=test`` builds only the test
+loader and runs the test pass; ``pretrain_ckpt_path`` loads a checkpoint
+(``ckpt/convert.py::load_torch_pretrain``) before anything runs.
 
 Not ported yet (JAX-only mechanisms or later work): resume, packed host
 transfer, K steps per dispatch, fused eval, gradient accumulation, DDP.
@@ -20,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from sceneverse_tpu_torch.ckpt.convert import load_torch_pretrain
 from sceneverse_tpu_torch.data.build import get_dataset, numpy_collate
 from sceneverse_tpu_torch.evaluator import build_eval
 from sceneverse_tpu_torch.model import build_model
@@ -107,10 +110,14 @@ class BaseTrainer:
             cfg, generator=torch.Generator().manual_seed(seed)).to(self.device)
         set_generators(self.model, seed, self.device)
         self.loss = Loss(cfg).to(self.device)
-        n_train = len(self.data_loaders["train"]) if "train" in keys else 1
-        self.total_steps = n_train * self.epochs
+        self.total_steps = (len(self.data_loaders["train"]) * self.epochs
+                            if "train" in keys else 1)
         self.optimizer = GPSOptimizer(cfg, self.model, self.total_steps)
         self.evaluator = build_eval(cfg)
+        self.pretrain_loaded = None
+        if cfg.get("pretrain_ckpt_path"):
+            self.pretrain_ckpt_path = Path(cfg.pretrain_ckpt_path)
+            self.load_pretrain()
         exp_dir = cfg.get("exp_dir") or "."
         self.ckpt_path = (Path(cfg.ckpt_path) if cfg.get("ckpt_path")
                           else Path(exp_dir) / "ckpt")
@@ -149,6 +156,14 @@ class BaseTrainer:
             for i, (_, base_lr) in enumerate(self.optimizer.group_info):
                 row[f"{mode}/lr/group_{i}"] = base_lr * ratio
         self.logger.log(row, step=step)
+
+    def load_pretrain(self):
+        """Warm start from ``pretrain_ckpt_path`` (``pytorch_model*.bin``
+        shards or a ``best.pth``), after the model is on its device (JAX
+        ``trainer/build.py:213-215, 674-681``)."""
+        n = load_torch_pretrain(self.model, self.pretrain_ckpt_path)
+        self.pretrain_loaded = n
+        print(f"Loaded {n} tensors from {self.pretrain_ckpt_path}")
 
     def save(self, name: str):
         self.ckpt_path.mkdir(parents=True, exist_ok=True)

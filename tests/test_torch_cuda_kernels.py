@@ -12,7 +12,12 @@ activations on both sides); FPS and ball-query indices exactly equal;
 ball_group's grouped rows exactly equal (the same gather, bf16 rounding and
 f32 subtraction on both sides); sa_train: the tolerances of chip_smoke.py's
 SA_TRAIN_TOL (its comment gives the reasons), argmax equal but at
-near-ties, and every kernel bit-identical over two runs."""
+near-ties, and every kernel bit-identical over two runs; sa_dense_pool and
+the flash kernels bit-identical over two runs, sa_dense_pool within the SA
+1e-2, flash_fwd / flash_bwd within 2e-2 (bf16 outputs); the exact-mode
+model forward on the card within 3e-2 of the same forward on the CPU
+(flash and SA outputs rounded to bf16 at the same points, sums in another
+order, through 2-layer towers)."""
 
 import math
 
@@ -283,3 +288,136 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # dG not (H, H)
         st.sa_stats_bwd(x, params, 1, torch.zeros(16, device=dev),
                         torch.zeros((16, 8), device=dev))
+
+
+@pytest.mark.parametrize("G", [48, 2560])  # small; SA2 of the GPS slice
+def test_sa_dense_pool_matches_plain(dev, G):
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    g = torch.Generator().manual_seed(5)
+    N, C, m, r, spec = 32, 131, 16, 0.4, [131, 128, 128, 256]
+    pts = (torch.rand((G, N, C), generator=g) - 0.5).to(dev)
+    ws = []
+    for cin, h in zip(spec[:-1], spec[1:]):
+        ws += [torch.randn((h, cin), generator=g) / math.sqrt(cin),
+               torch.stack([torch.rand(h, generator=g) + 0.5,
+                            torch.randn(h, generator=g) * 0.1], 1)]
+    ops = sa.prepare_weights(*[w.to(dev) for w in ws])
+    ctr, _ = sa.fps(pts[..., :3].contiguous(), m)
+    ctr[:3] += 5.0  # empty balls: pair (c, 0)
+    before = _build.LAUNCHES["sa_dense_pool"]
+    got = sa.sa_dense_pool(pts, ctr, *ops, radius=r)
+    again = sa.sa_dense_pool(pts, ctr, *ops, radius=r)
+    want = sa.sa_dense_pool_plain(pts, ctr, *ops, radius=r)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sa_dense_pool"] == before + 2
+    assert torch.equal(got, again)
+    assert want.abs().max() > 0 and _rel(got, want) <= 1e-2
+    # the same function as the dense branch of sa_group_mlp_pool
+    other = sa.sa_group_mlp_pool(pts, ctr, *ops, radius=r, nsample=32)
+    assert _rel(got, other) <= 1e-2
+
+
+@pytest.mark.parametrize("use_ab", [False, True])
+@pytest.mark.parametrize("Lq,Lk", [(50, 50), (130, 130), (300, 300),
+                                   (40, 72), (1, 9)])
+def test_flash_kernels_match_plain(dev, Lq, Lk, use_ab):
+    """bf16 outputs within 2e-2 of max|plain| (an element on a bf16
+    rounding boundary may land one step apart); two runs bit-identical."""
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import attention as fa
+
+    g = torch.Generator().manual_seed(6)
+    B, H, dh, bf = 3, 12, 64, torch.bfloat16
+    q = (torch.randn((B, H, Lq, dh), generator=g) * 0.125).to(dev, bf)
+    k, v = (torch.randn((B, H, Lk, dh), generator=g).to(dev, bf)
+            for _ in range(2))
+    do = torch.randn((B, H, Lq, dh), generator=g).to(dev, bf)
+    pad = torch.rand((B, Lk), generator=g) > 0.7
+    pad[:, 0] = False
+    pad = pad.to(dev)
+    ab = (torch.randn((B, H, Lq, Lk), generator=g).to(dev) if use_ab
+          else None)
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_fwd(q, k, v, pad, ab)
+    assert all(torch.equal(a, b) for a, b in zip(got,
+                                                  fa.flash_fwd(q, k, v, pad,
+                                                               ab)))
+    want = fa.flash_fwd_plain(q, k, v, pad, ab)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 2e-2
+    bargs = (q, k, v, pad, ab, *want, do)
+    got = fa.flash_bwd(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip(got, fa.flash_bwd(*bargs))
+               if a is not None)
+    want = fa.flash_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert b.abs().max() > 0 and _rel(a, b) <= 2e-2
+    assert _build.LAUNCHES["flash_fwd"] == before.get("flash_fwd", 0) + 2
+    assert _build.LAUNCHES["flash_bwd"] == before.get("flash_bwd", 0) + 2
+
+
+def test_exact_mode_forward_on_the_card_takes_the_new_kernels(dev,
+                                                              monkeypatch):
+    """The OpenVocab model (head width 64, GPS SA widths) with the exact-mode
+    gates: an eval forward on the card launches sa_dense_pool once and
+    flash_fwd once per non-spatial attention layer, never mha_fwd, and
+    agrees with the same forward on the CPU (plain twins); a train step
+    launches no flash kernel."""
+    import os
+
+    from sceneverse_tpu_torch.config import load_config
+    from sceneverse_tpu_torch.data.build import get_dataset, numpy_collate
+    from sceneverse_tpu_torch.model import build_model
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.optim.loss.loss import Loss
+
+    for k, v in {"SCENEVERSE_FUSED_MHA": "off", "SCENEVERSE_FLASH_ATTN": "on",
+                 "SCENEVERSE_SA2_BATCHED": "on"}.items():
+        monkeypatch.setenv(k, v)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    w = ["hidden_size=128", "num_attention_heads=2"]
+    cfg = load_config(
+        os.path.join(repo, "configs", "final", "synthetic_pretrain.yaml"),
+        [f"model.{t}.args.{a}" for t in ("language", "vision", "grounding")
+         for a in w]
+        + ["model.language.args.num_hidden_layers=2",
+           "model.vision.args.num_layers=2",
+           "model.grounding.args.num_layers=2",
+           "model.vision.args.dim_feedforward=256",
+           "model.grounding.args.dim_feedforward=256",
+           "model.heads.pretrain_head.args.hidden_size=128",
+           "data.synthetic_size=4", "data.args.num_points=64",
+           "data.args.max_obj_len=4", "model.split_scene_cap_tower=True"])
+    ds = get_dataset(cfg, "train")
+    batch = {k: torch.from_numpy(v) for k, v in
+             numpy_collate([ds[0], ds[1]]).items() if hasattr(v, "dtype")
+             and v.dtype != object}
+    model = build_model(cfg).eval()
+    with torch.no_grad():
+        ref = model(batch)
+    model = model.to(dev)
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    _build.reset_launches()
+    with torch.no_grad():
+        out = model(on_dev)
+    torch.cuda.synchronize()
+    seen = {k: _build.LAUNCHES[k] for k in ("sa_dense_pool", "flash_fwd",
+                                             "mha_fwd", "sa_group_mlp_pool")}
+    # utterance 2 + caption 1 ([CLS]-only layer plain) + unified 2
+    assert seen == {"sa_dense_pool": 1, "flash_fwd": 5, "mha_fwd": 0,
+                    "sa_group_mlp_pool": 1}
+    for k in ("og3d_logits", "scene_text_embed", "txt_lm_cls_logits"):
+        scale = max(1.0, ref[k].abs().max().item())
+        assert (out[k].cpu() - ref[k]).abs().max().item() <= 3e-2 * scale, k
+    model.train()
+    _build.reset_launches()
+    total, _ = Loss(cfg).to(dev)(model(on_dev))
+    total.backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_fwd"] == 0 and _build.LAUNCHES["mha_bwd"] == 0
+    assert _build.LAUNCHES["sa_dense_pool"] == 1
