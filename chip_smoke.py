@@ -16,8 +16,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and the least time the card could take (``bound_ms``). The four
      ``sa_train`` kernels run at SA1, SA2 and SA3 of the fused slice and
      must give bit-identical outputs twice; so must ``sa_dense_pool`` (SA2
-     shapes) and ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
-     without the bias ``ab``; SDPA as their library yardstick).
+     shapes), ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
+     without the bias ``ab``; SDPA as their library yardstick) and
+     ``mha_fwd`` / ``mha_bwd`` (the four GPS attention shapes; their f32
+     bound counts the products at the 3xTF32 tensor-core rate).
   4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
      (768-d, 80 objects x 1024 points, 50 + 300 tokens, batch 32): train
      steps, val and test eval, with the frozen PointNet++, unfrozen
@@ -116,9 +118,11 @@ PATHS = {
                           "flash_fwd"), EXACT_ENV),
 }
 # H100 SXM: HBM bytes/s and peak FLOP/s by operand type (CUDA-core f32,
-# dense bf16 tensor cores), from the H100 SXM datasheet
+# dense bf16 tensor cores), from the H100 SXM datasheet; "3xtf32": f32-exact
+# products on the tensor cores as three TF32 products at 495 TFLOP/s (the
+# f32 rows of the mha kernels, which form them so)
 HBM_RATE = 3.35e12
-PEAK = {"f32": 67e12, "bf16": 989e12}
+PEAK = {"f32": 67e12, "bf16": 989e12, "3xtf32": 495e12 / 3}
 
 SOURCES = {
     "fps": ("sceneverse_tpu_torch/csrc/sa_kernels.cu",
@@ -666,6 +670,11 @@ def check_argmax(tag, x, params, ns, pooled, arg, wpooled, warg):
 
 
 def phase_mha(table):
+    """``mha_fwd`` and ``mha_bwd`` against their twins at the four GPS
+    attention shapes (B=32, H=12, dh=64), f32 and bf16, each run twice and
+    required bit-identical. Their f32 bound counts the products at the
+    3xTF32 rate of the tensor cores (``PEAK["3xtf32"]``), the way the
+    kernels form them."""
     import torch
     import torch.nn.functional as F
 
@@ -696,6 +705,10 @@ def phase_mha(table):
             q, k, v, do = (t.to(dtype) for t in base)
             args = (q, k, v, pad, sw, locs, H, scale, rate, 77)
             o, lse = mha.mha_fwd(*args)
+            o2, lse2 = mha.mha_fwd(*args)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"mha_fwd {label} {dname}: two runs "
+                                     "differ")
             o_ref, lse_ref = mha.mha_fwd_plain(*args)
             lerr, lscale = _err(lse, lse_ref)
             if lerr > TOL["f32"] * lscale:
@@ -722,14 +735,20 @@ def phase_mha(table):
             qkvo = 4 * B * L * D * el
             gate_b = nbytes(sw, locs)
             work = B * H * L * L * dh
+            peak = "3xtf32" if dtype == torch.float32 else dname
             table.add("mha_fwd", label, dname, *_err(o, o_ref),
                       cuda_ms(lambda: mha.mha_fwd(*args)),
                       cuda_ms(lambda: mha.mha_fwd_plain(*args)), TOL[dname],
-                      bound(qkvo + nbytes(pad, lse) + gate_b, 4 * work, dname),
+                      bound(qkvo + nbytes(pad, lse) + gate_b, 4 * work, peak),
                       lib_fwd)
             bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, scale,
                      rate, 77)
             got = mha.mha_bwd(*bargs)
+            again = mha.mha_bwd(*bargs)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if b is not None):
+                raise AssertionError(f"mha_bwd {label} {dname}: two runs "
+                                     "differ")
             want = mha.mha_bwd_plain(*bargs)
             errs = [_err(a, b) for a, b in zip(got, want) if b is not None]
             worst = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
@@ -739,8 +758,8 @@ def phase_mha(table):
                       cuda_ms(lambda: mha.mha_bwd(*bargs)),
                       cuda_ms(lambda: mha.mha_bwd_plain(*bargs)), TOL[dname],
                       bound(2 * qkvo + nbytes(pad, lse) + gate_b
-                            + nbytes(sw), 10 * work, dname), lib_bwd)
-            del o, lse, o_ref, lse_ref, got, want, heads, bias
+                            + nbytes(sw), 10 * work, peak), lib_bwd)
+            del o, lse, o2, lse2, o_ref, lse_ref, got, again, want, heads, bias
         torch.cuda.empty_cache()
 
 

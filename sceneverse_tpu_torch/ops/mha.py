@@ -7,23 +7,40 @@ Port of ``sceneverse_tpu/ops/pallas/mha.py::fused_mha`` (TPU kernels
 
 ``mha_fwd``
     softmax(q k^T * scale + pad [+ cond gate]) v with prob-dropout; writes o
-    and the f32 logsumexp. Grid (B*H, L/32): a block stages one head's K and V
-    in shared memory (row stride dh+1, so the per-lane column reads do not
-    collide on banks) and each warp owns query rows, holding the row's
-    scores in shared memory. The TPU kernel keeps a whole (L, T) f32 score
-    tile per head in VMEM; at L = T = 300 that is 352 KB, more than a Hopper
-    block's 227 KB, so the port tiles over query rows instead.
+    and the f32 logsumexp. Grid (L/64, B*H), 8 warps: a block owns 64 query
+    rows of one head and keeps their whole score rows in a 64 x T f32 slab
+    in shared memory (77 KB at T = 300), the TPU kernel's whole-row design
+    cut to fit a Hopper block (the TPU kernel's (L, T) tile is 352 KB at
+    L = T = 300). K and then V stream through a two-stage ``cp.async`` ring
+    in 32-key tiles; each warp turns its block of q.k sums into logits
+    (scale, pad, gate) as it lands. A row pass then takes each row's exact
+    max and sum, writes lse, and stores the normalised, v-dtype-rounded,
+    dropped probabilities in place; then p.v runs over the V tiles. No
+    online rescaling, so the rounding points are the TPU kernel's.
 ``mha_bwd``
     flash-style recompute from lse: p = exp(s - lse), delta = rowsum(do*o),
-    ds = p (dp - delta). Two launches so no atomics are needed: the first is
-    gridded like the forward and writes dq and the gate gradient dsw per
-    query row; the second grids over key tiles, stages Q and dO of the head,
-    and writes dk and dv per key. Deterministic.
+    ds = p (dp - delta). Two launches, no float atomics: the first owns 64
+    query rows, computes delta once per row (into a (B, H, L) f32 scratch
+    the wrapper allocates), walks 32-key (K, V) tiles and accumulates dq and
+    the gate gradient dsw (summed per row inside one warp); the second owns
+    64 keys, walks 32-row (Q, dO) tiles and accumulates dv = a^T do and
+    dk = ds^T q. Deterministic: two runs agree bit for bit.
 
-Bound on the card: the multiply-adds of the q.k, do.v and p.v products on
-the CUDA cores, fed from shared memory (no tensor cores yet: wgmma/TMA are
-later work). What the design buys is that no (B, H, L, T) score,
-probability, gate or dropout-mask tensor ever reaches device memory.
+Every product runs on the tensor cores (``nvcuda::wmma``, f32 sums): bf16
+m16n16k16 for bf16 operands; for f32 operands 3xTF32, each operand split
+into big = tf32_rna(x) and small = tf32_rna(x - big) and the product formed
+as small.big + big.small + big.big on m16n16k8 TF32 fragments, about f32
+accuracy (single-pass TF32 keeps ~3 digits and would break the f32
+tolerance). The elementwise work (pad, gate, exp, dropout counter) needs
+each element's (row, key), and wmma fragments have no documented element
+layout, so scores pass through shared memory, as in ``flash_attn.cu``; the
+forward's slab holds them anyway. Shared memory per block at f32 / bf16:
+forward 114 / 97 KB at T = 300 (T <= 768 fits), dq 90 / 62 KB, dk/dv
+87 / 64 KB: two blocks of 8 warps per SM; registers and spills, from
+ptxas, are in the note at the head of ``csrc/mha_kernels.cu``.
+Bound on the card: the products at 165 TFLOP/s (3xTF32) or 989 (bf16);
+wgmma and TMA are later work. No (B, H, L, T) score, probability, gate or
+dropout-mask tensor ever reaches device memory.
 
 Routing (``fused_mha_enabled``, ``fused_mha_supported``) is the JAX
 package's: the gate ``SCENEVERSE_FUSED_MHA`` (default on) and its head
@@ -53,7 +70,6 @@ from sceneverse_tpu_torch.ops import _build
 LOG1E6 = math.log(1e-6)
 NEG = -1e30
 _MAX_SMEM = 227 * 1024
-_WARPS, _ROWS_PER_WARP = 8, 4
 _DTYPES = (torch.float32, torch.bfloat16)
 _GATE_ENV = "SCENEVERSE_FUSED_MHA"
 
@@ -192,21 +208,32 @@ def _lib():
             [I, I, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F, I, P])
         lib.bwd_fn = _build.bind(
             lib, "sv_mha_bwd",
-            [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F,
-             F, I, P])
+            [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F,
+             F, F, I, P])
         lib._bound = True
     return lib
 
 
-def mha_smem_bytes(L: int, T: int, dh: int) -> int:
-    fwd = 4 * (2 * T * (dh + 1) + _WARPS * T + _WARPS * 2 * dh)
-    dkv = 4 * (2 * L * (dh + 1) + 2 * L + 2 * _WARPS * L + _WARPS * 2 * dh)
-    return max(fwd, dkv)
+def mha_smem_bytes(L: int, T: int, dh: int, elem: int = 4) -> int:
+    """Dynamic shared memory of the largest of the three launches at
+    operands of ``elem`` bytes (``csrc/mha_kernels.cu``): the forward's
+    64 x (max(ceil16(T), 64) + 4) f32 score slab plus a 64-row and two
+    32-row operand tiles; the backward launches need a fixed amount (no L or
+    T term)."""
+    row = (dh + 16 // elem) * elem  # one staged operand row
+    fwd = 4 * 64 * (max(-(-T // 16) * 16, 64) + 4) + 128 * row
+    dq = 256 * row + 4 * 2 * 64 * 36 + (64 * 40 * elem if elem == 2 else 0) \
+        + 4 * 64 * 8
+    dkv = 256 * row + 4 * 2 * 32 * 68 + (2 * 32 * row if elem == 2 else 0) \
+        + 4 * 64
+    return max(fwd, dq, dkv)
 
 
 def _check_operands(q, k, v, padadd, sw, locs, n_heads):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require_cuda(t, f"mha.{name}", _DTYPES, 3)
+        if t.data_ptr() % 16:  # rows are staged by 16-byte cp.async copies
+            raise ValueError(f"mha.{name}: address not 16-byte aligned")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("mha: q, k, v must share one dtype")
     B, L, D = q.shape
@@ -217,7 +244,7 @@ def _check_operands(q, k, v, padadd, sw, locs, n_heads):
     dh = D // n_heads
     if dh != 64:
         raise ValueError(f"mha: head width {dh} not instantiated (only 64)")
-    if mha_smem_bytes(L, T, dh) > _MAX_SMEM:
+    if mha_smem_bytes(L, T, dh, q.element_size()) > _MAX_SMEM:
         raise ValueError(f"mha: L={L}, T={T} exceed the kernel's shared "
                          "memory")
     _build.require_cuda(padadd, "mha.pad", (torch.float32,), 2)
@@ -268,21 +295,24 @@ def mha_bwd(q, k, v, padadd, sw, locs, do, o, lse, n_heads: int,
     B, L, T, D, dh = _check_operands(q, k, v, padadd, sw, locs, n_heads)
     for name, t in (("do", do), ("o", o)):
         _build.require_cuda(t, f"mha.{name}", (q.dtype,), 3)
-        if t.shape != q.shape:
-            raise ValueError(f"mha.{name}: expected {tuple(q.shape)}")
+        if t.shape != q.shape or t.data_ptr() % 16:
+            raise ValueError(f"mha.{name}: expected {tuple(q.shape)} at a "
+                             "16-byte aligned address")
     _build.require_cuda(lse, "mha.lse", (torch.float32,), 3)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsw = (torch.empty((B, n_heads, L, 6), device=q.device,
                        dtype=torch.float32) if sw is not None else None)
+    # delta = rowsum(do * o), written by the dq launch, read by dk/dv
+    delta = torch.empty((B, n_heads, L), device=q.device, dtype=torch.float32)
     inv_t, inv_f = _inv_keep(rate, q.dtype)
     code = _lib().bwd_fn(
         int(q.dtype == torch.bfloat16), dh, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), padadd.data_ptr(), sw.data_ptr() if sw is not None else None,
         locs.data_ptr() if sw is not None else None, do.data_ptr(),
         o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dsw.data_ptr() if dsw is not None else None, B,
-        n_heads, L, T, float(scale), float(rate), inv_t, inv_f, int(seed),
-        _build.stream_ptr(q))
+        dv.data_ptr(), dsw.data_ptr() if dsw is not None else None,
+        delta.data_ptr(), B, n_heads, L, T, float(scale), float(rate), inv_t,
+        inv_f, int(seed), _build.stream_ptr(q))
     _build.LAUNCHES["mha_bwd"] += 1
     _build.check(code, "mha_bwd")
     return dq, dk, dv, dsw

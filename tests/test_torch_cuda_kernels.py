@@ -10,7 +10,8 @@ arithmetic, another summation order); bf16 2e-2 (an element on a bf16
 rounding boundary may land one step, 2^-8, apart); SA 1e-2 (bf16 weights and
 activations on both sides); FPS and ball-query indices exactly equal;
 ball_group's grouped rows exactly equal (the same gather, bf16 rounding and
-f32 subtraction on both sides); sa_train: the tolerances of chip_smoke.py's
+f32 subtraction on both sides); mha_fwd / mha_bwd bit-identical over two
+runs, f32 (3xTF32 products) within 1e-4 and bf16 within 2e-2; sa_train: the tolerances of chip_smoke.py's
 SA_TRAIN_TOL (its comment gives the reasons), argmax equal but at
 near-ties, and every kernel bit-identical over two runs; sa_dense_pool and
 the flash kernels bit-identical over two runs, sa_dense_pool within the SA
@@ -107,11 +108,15 @@ def test_ball_group_matches_plain(dev, G, N, C, m, ns, r, exact):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("L,T,gate,rate", [
-    (50, 50, False, 0.1), (80, 80, True, 0.0), (130, 130, False, 0.1),
-    (40, 72, False, 0.0),
+@pytest.mark.parametrize("L,T,gate,rate,padkind", [
+    (50, 50, False, 0.1, "keypad"), (80, 80, True, 0.0, "keypad"),
+    (130, 130, False, 0.1, "keypad"), (40, 72, False, 0.0, "keypad"),
+    # the caption layers: the additive HF row (finfo(f32).min at pads)
+    (300, 300, False, 0.1, "additive"),
+    # ragged: neither length a multiple of 16 or 64
+    (37, 300, True, 0.1, "keypad"),
 ])
-def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate):
+def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate, padkind):
     from sceneverse_tpu_torch.ops import mha
 
     g = torch.Generator().manual_seed(1)
@@ -120,22 +125,27 @@ def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate):
     k, v = (torch.randn((B, T, H * dh), generator=g).to(dev, dtype)
             for _ in range(2))
     do = torch.randn((B, L, H * dh), generator=g).to(dev, dtype)
-    pad = torch.where(torch.rand((B, T), generator=g) > 0.8, mha.NEG,
+    padval = (torch.finfo(torch.float32).min if padkind == "additive"
+              else mha.NEG)
+    pad = torch.where(torch.rand((B, T), generator=g) > 0.8, padval,
                       0.0).float().to(dev)
     pad[:, 0] = 0.0
     sw = torch.randn((B, H, L, 6), generator=g).to(dev) if gate else None
     locs = torch.randn((B, L, T, 5), generator=g).to(dev) if gate else None
     args = (q, k, v, pad, sw, locs, H, 0.125, rate, 5)
     o, lse = mha.mha_fwd(*args)
+    o2, lse2 = mha.mha_fwd(*args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o_ref, lse_ref = mha.mha_fwd_plain(*args)
     assert _rel(o, o_ref) <= tol and _rel(lse, lse_ref) <= tol
-    got = mha.mha_bwd(q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, 0.125,
-                      rate, 5)
-    want = mha.mha_bwd_plain(q, k, v, pad, sw, locs, do, o_ref, lse_ref, H,
-                             0.125, rate, 5)
-    for a, b in zip(got, want):
+    bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, 0.125, rate, 5)
+    got = mha.mha_bwd(*bargs)
+    again = mha.mha_bwd(*bargs)
+    want = mha.mha_bwd_plain(*bargs)
+    for a, a2, b in zip(got, again, want):
         assert (a is None) == (b is None)
         if b is not None:
+            assert torch.equal(a, a2)
             assert _rel(a, b) <= tol
 
 

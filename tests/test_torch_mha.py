@@ -6,7 +6,13 @@ Tolerances: forward 1e-5 and grads 1e-4 (absolute, on O(1) values). Both
 sides compute the same f32 formulas; only the summation order of the dot
 products and the exp/log implementations differ. The dropout mask is drawn
 from the same counter hash on both sides, so dropout-on cases compare
-exactly the same kept set."""
+exactly the same kept set. The GPS-length cases (L = T = 300 with the
+additive row and dropout, L = T = 80 with the gate) run at B = 1, H = 2,
+dh = 64, the head width of the CUDA kernels.
+
+The 3xTF32 test emulates on the CPU the split the f32 CUDA kernels form on
+the tensor cores, and holds it to the f32 tolerance the card's tests use
+(1e-4 of max|f32 twin|)."""
 
 import math
 
@@ -26,6 +32,9 @@ def _case(mode, seed=0):
     rng = np.random.RandomState(seed)
     B, H, dh = 2, 4, 16
     L = T = 12
+    if mode.startswith("gps"):  # caption (L300) and spatial (L80) layers
+        B, H, dh = 1, 2, 64
+        L = T = 300 if mode == "gps_caption" else 80
     D = H * dh
     d = {
         "q": rng.randn(B, L, D).astype(np.float32),
@@ -38,15 +47,15 @@ def _case(mode, seed=0):
     kw = {}
     if mode == "keypad":
         kw["key_padding_mask"] = pad
-    elif mode in ("additive", "dropout"):
+    elif mode in ("additive", "dropout", "gps_caption"):
         # HF extended mask row, finfo(f32).min at pads
         kw["pad_additive"] = np.where(pad, np.finfo(np.float32).min,
                                       0.0).astype(np.float32)
-    elif mode == "gate":
+    elif mode in ("gate", "gps_spatial"):
         kw["key_padding_mask"] = pad
         kw["gate_sw"] = rng.randn(B, H, L, 6).astype(np.float32)
         kw["locs"] = rng.randn(B, L, T, 5).astype(np.float32)
-    rate = 0.1 if mode == "dropout" else 0.0
+    rate = 0.1 if mode in ("dropout", "gps_caption") else 0.0
     return d, kw, H, rate, 1.0 / math.sqrt(dh)
 
 
@@ -86,7 +95,8 @@ def _torch_run(d, kw, H, rate, scale, seed):
     return o.detach().numpy(), [leaves[n].grad.numpy() for n in names]
 
 
-@pytest.mark.parametrize("mode", ["keypad", "additive", "gate", "dropout"])
+@pytest.mark.parametrize("mode", ["keypad", "additive", "gate", "dropout",
+                                  "gps_caption", "gps_spatial"])
 def test_fused_mha_matches_jax_interpret(mode):
     d, kw, H, rate, scale = _case(mode)
     seed = 1234
@@ -123,3 +133,45 @@ def test_mha_bf16_plain_runs_and_keeps_dtype():
     assert o.dtype == torch.bfloat16
     o.float().sum().backward()
     assert q.grad.dtype == torch.bfloat16 and torch.isfinite(q.grad.float()).all()
+
+
+def _tf32_rna(x):
+    """f32 -> TF32 (10 mantissa bits), round to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits, mask."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)  # 0xFFFFE000
+
+
+def _mm_3xtf32(a, b):
+    """a @ b with each operand split into big + small TF32 parts and the
+    product formed as small.big + big.small + big.big (f32 sums)."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def test_3xtf32_split_keeps_f32_accuracy_at_l300():
+    rng = np.random.RandomState(3)
+    L = T = 300
+    q, k, v = (torch.tensor(rng.randn(n, 64).astype(np.float32))
+               for n in (L, T, T))
+    x = torch.tensor(rng.randn(1000).astype(np.float32) * 1e3)
+    assert torch.equal(_tf32_rna(_tf32_rna(x)), _tf32_rna(x))
+    assert ((_tf32_rna(x) - x).abs() <= x.abs() * 2.0 ** -11).all()
+    s = q @ k.T * 0.125
+    p = torch.softmax(s, -1)
+    ref = {"q.k^T": (q.double() @ k.double().T, q @ k.T),
+           "p.v": (p.double() @ v.double(), p @ v)}
+    got = {"q.k^T": (_mm_3xtf32(q, k.T), _tf32_rna(q) @ _tf32_rna(k.T)),
+           "p.v": (_mm_3xtf32(p, v), _tf32_rna(p) @ _tf32_rna(v))}
+    for name, (exact, f32) in ref.items():
+        three, single = got[name]
+        scale = f32.abs().max().item()
+        e3 = (three.double() - exact).abs().max().item() / scale
+        e1 = (single.double() - exact).abs().max().item() / scale
+        e32 = (f32.double() - exact).abs().max().item() / scale
+        print(f"{name}: 3xTF32 {e3:.2e}, single-pass TF32 {e1:.2e}, "
+              f"f32 {e32:.2e} (of max|f32|)")
+        assert (three - f32).abs().max().item() <= 1e-4 * scale
+        assert e3 <= 4 * max(e32, 1e-7)
+        assert e1 > 1e-4  # one TF32 pass would fail the f32 tolerance
