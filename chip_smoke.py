@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught):
      ``sa_train`` kernels run at SA1, SA2 and SA3 of the fused slice and
      must give bit-identical outputs twice; so must ``sa_dense_pool`` (SA2
      shapes), ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
-     without the bias ``ab``; SDPA as their library yardstick) and
+     without the bias ``ab``; SDPA as their library yardstick; and
+     ``flash_fwd`` at L = 300 with whole trailing key tiles of pad and an
+     all-pad row, whose skipped tiles must change no bit) and
      ``mha_fwd`` / ``mha_bwd`` (the four GPS attention shapes; their f32
      bound counts the products at the 3xTF32 tensor-core rate).
   4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero; nothing is caught):
      ``SCENEVERSE_SA_TRAIN_FUSED=on`` set for that slice only (every SA
      level through the fused ``sa_train`` kernels), and frozen in the JAX
      package's exact mode (``EXACT_ENV``: no fused MHA, flash attention in
-     eval, the batched SA2 stage). Launch counters are reset just before
+     eval, the batched SA2 stage, the full caption tower: the parity
+     recipe of PARITY_KIT.md). Launch counters are reset just before
      each and read just after; every kernel of each path must have
      launched, the fused slice's ``sa_*`` kernels exactly as often per
      train step as three fused levels need, the exact slice's kernels
@@ -100,13 +103,14 @@ FUSED_ENV = {"SCENEVERSE_BN_FOLD": "on", "SCENEVERSE_SA_TRAIN_FUSED": "on"}
 SA_TRAIN_PER_STEP = {"sa_stats": 6, "sa_stats_bwd": 6, "sa_pool": 3,
                      "sa_pool_bwd": 3}
 # the JAX package's exact mode for evaluating checkpoints: no fused MHA,
-# flash attention where dropout is inactive (eval), the batched SA2 stage.
-# flash_fwd runs once per non-spatial attention layer of an eval batch:
-# utterance BERT 4 + caption BERT 3 (its [CLS]-only layer is plain) +
+# flash attention where dropout is inactive (eval), the batched SA2 stage,
+# and the full caption tower (``SCENEVERSE_CAP_CLS_ONLY=off``, the parity
+# recipe of PARITY_KIT.md:19-28). flash_fwd runs once per non-spatial
+# attention layer of an eval batch: utterance BERT 4 + caption BERT 4 +
 # unified encoder 4; the spatial 'cond' layers take the plain path
 EXACT_ENV = {"SCENEVERSE_FUSED_MHA": "off", "SCENEVERSE_FLASH_ATTN": "on",
-             "SCENEVERSE_SA2_BATCHED": "on"}
-FLASH_PER_EVAL_BATCH = 11
+             "SCENEVERSE_SA2_BATCHED": "on", "SCENEVERSE_CAP_CLS_ONLY": "off"}
+FLASH_PER_EVAL_BATCH = 12
 PATHS = {
     "frozen": ([], ("fps", "sa_group_mlp_pool", "mha_fwd", "mha_bwd"), {}),
     "unfrozen": (["model.vision.args.freeze=False"],
@@ -236,6 +240,18 @@ def bound(nbytes, flops, dtype):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def key_bytes(valid, L, *per_key):
+    """Bytes of attention operands indexed (batch, ..., key) -- k, v (B, H,
+    L, dh) and ab (B, H, L, L) -- that a key-pad mask leaves needed: each
+    batch row's valid keys, and all L of a row with none (its output is the
+    mean of v). ``valid`` (B,) counts each row's valid prefix."""
+    import torch
+
+    keys = int(torch.where(valid > 0, valid, L).sum())
+    return sum(nbytes(t) // (t.shape[0] * L) * keys for t in per_key
+               if t is not None)
 
 
 class Table:
@@ -407,13 +423,14 @@ def phase_flash(table):
             lib_bwd = cuda_ms(lambda: torch.autograd.grad(
                 o_lib, heads, do, retain_graph=True))
             del o_lib, heads
-            work = B * H * L * L * dh
-            qkv = nbytes(q, k, v)
+            # the products of the valid keys; k, v and ab of those keys
+            work = H * L * dh * int(valid.sum())
+            need = nbytes(q, pad) + key_bytes(valid, L, k, v, ab)
             table.add("flash_fwd", tag, "bf16", *worst,
                       cuda_ms(lambda: fa.flash_fwd(q, k, v, pad, ab)),
                       cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, pad, ab)),
                       TOL["bf16"],
-                      bound(qkv + nbytes(pad, ab, o, l, m), 4 * work, "bf16"),
+                      bound(need + nbytes(o, l, m), 4 * work, "bf16"),
                       lib_fwd)
             bargs = (q, k, v, pad, ab, ro, rl, rm, do)
             got = fa.flash_bwd(*bargs)
@@ -425,17 +442,73 @@ def phase_flash(table):
             worst = max((_err(a, b) for a, b in zip(got, want)
                          if b is not None),
                         key=lambda e: e[0] / max(e[1], 1e-30))
-            # reads q, k, v, o, do, l, m, pad (+ ab); writes dq, dk, dv
-            # (+ d ab); recomputes q.k and do.v and forms dv, dk, dq
+            # reads q, o, do, l, m, pad and the valid keys' k, v (+ ab);
+            # writes dq, dk, dv (+ d ab); recomputes q.k and do.v and forms
+            # dv, dk, dq over the valid keys
             table.add("flash_bwd", tag, "bf16", *worst,
                       cuda_ms(lambda: fa.flash_bwd(*bargs)),
                       cuda_ms(lambda: fa.flash_bwd_plain(*bargs)),
                       TOL["bf16"],
-                      bound(2 * qkv + nbytes(ro, do, rl, rm, pad, ab)
-                            + nbytes(ab), 10 * work, "bf16"),
+                      bound(need + nbytes(ro, do, rl, rm)
+                            + nbytes(q, k, v, ab),  # dq, dk, dv, d ab
+                            10 * work, "bf16"),
                       lib_bwd)
             del o, l, m, o2, l2, m2, ro, rl, rm, got, again, want
         torch.cuda.empty_cache()
+    flash_pad_tail(table, g)
+
+
+def flash_pad_tail(table, g):
+    """``flash_fwd`` at L=300 with valid lengths of 1-127 keys, so that the
+    kernel's walk stops after the tile holding a row's last valid key and
+    skips whole trailing tiles of pad, and one batch row with no valid key
+    (it walks every tile and gets the mean of v). The skip is exact: the
+    kernel's output equals its own output on keys cut after that tile. The
+    bound counts the operations of the valid keys and the bytes of q, o, l,
+    m, the mask and the k, v the rows need (``key_bytes``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sceneverse_tpu_torch.ops import attention as fa
+
+    dev = torch.device("cuda")
+    B, H, L, dh, bf = 32, 12, 300, 64, torch.bfloat16
+    valid = torch.randint(1, 128, (B,), generator=g)
+    valid[0] = 0
+    pad = (torch.arange(L)[None] >= valid[:, None]).to(dev)
+    q, k, v = (torch.randn((B, H, L, dh), generator=g).to(dev, bf)
+               for _ in range(3))
+    q = (q.float() * 0.125).to(bf)
+    o, l, m = fa.flash_fwd(q, k, v, pad)
+    again = fa.flash_fwd(q, k, v, pad)
+    if not all(torch.equal(a, b) for a, b in zip((o, l, m), again)):
+        raise AssertionError("flash_fwd pad tail: two runs differ")
+    ro, rl, rm = fa.flash_fwd_plain(q, k, v, pad)
+    worst = max((_err(o, ro), _err(l, rl), _err(m, rm)),
+                key=lambda e: e[0] / max(e[1], 1e-30))
+    mean_v = v[0].float().mean(1, keepdim=True).expand(H, L, dh)
+    if (o[0].float() - mean_v).abs().max() > 2.0 ** -7:
+        raise AssertionError("flash_fwd pad tail: the all-pad row is not "
+                             "the mean of v")
+    for b in range(1, 4):  # cut after the tile of the last valid key
+        end = -(-int(valid[b]) // fa.BK) * fa.BK
+        cut = fa.flash_fwd(q[b:b + 1], k[b:b + 1, :, :end].contiguous(),
+                           v[b:b + 1, :, :end].contiguous(),
+                           pad[b:b + 1, :end].contiguous())
+        if not all(torch.equal(a[b:b + 1], c) for a, c in zip((o, l, m), cut)):
+            raise AssertionError(f"flash_fwd pad tail: row {b} differs from "
+                                 "its cut keys")
+    mask = ~pad[:, None, None, :]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    work = H * L * dh * int(valid.sum())
+    table.add("flash_fwd", "L=300 pad tail", "bf16", *worst,
+              cuda_ms(lambda: fa.flash_fwd(q, k, v, pad)),
+              cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, pad)),
+              TOL["bf16"],
+              bound(nbytes(q, pad, o, l, m) + key_bytes(valid, L, k, v),
+                    4 * work, "bf16"), lib)
+    torch.cuda.empty_cache()
 
 
 def phase_sample_group(table):

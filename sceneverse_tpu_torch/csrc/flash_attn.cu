@@ -12,16 +12,31 @@
 // bytes (1 = pad key, which gets s + MASK_VALUE as the library's segment
 // mask adds). Keys past Lk take no part (the library pads to 128-multiples
 // and masks its padding the same way). Every product has bf16 operands and
-// f32 accumulation on tensor cores (nvcuda::wmma 16x16x16 fragments); the
-// softmax and its derivative run in f32 with each operation rounded on its
-// own (no FMA contraction), in the order of the plain twins in
-// ops/attention.py. A block holds 64 rows of its own (query rows in the
-// forward and dq passes, keys in the dk/dv pass) and walks tiles of 64 of
-// the other; each of its 4 warps owns 16 of those rows, so every sum over
-// the walked dimension stays in one warp's registers or shared memory: no
-// float atomics, and two runs agree bit for bit.
-// Bound at the GPS lengths (L <= 300): the q.k and p.v products; the design
-// keeps every score, probability and ds tile out of device memory.
+// f32 accumulation on tensor cores; the softmax and its derivative run in
+// f32 with each operation rounded on its own (no FMA contraction), in the
+// order of the plain twins in ops/attention.py. A block holds 64 rows of its
+// own (query rows in the forward and dq passes, keys in the dk/dv pass) and
+// walks tiles of 64 of the other; each of its 4 warps owns 16 of those rows,
+// so every sum over the walked dimension stays in one warp: no float
+// atomics, and two runs agree bit for bit.
+//
+// Forward design (the kernel on the exact mode's eval path). What bounds it
+// on this card at the GPS lengths (L <= 300, B*H = 384): bytes (q and the
+// valid keys' k, v in, o out, at 3.35 TB/s) over the products, and in
+// practice latency: each block walks at most 5 key tiles. So scores,
+// probabilities, the running max and sum and the output never leave
+// registers: mma.sync m16n8k16 bf16 fragments (documented
+// layouts, common.cuh), the q.k^T accumulators repacked in registers as
+// the A operand of p.v, row max and sum as two quad shuffles per row; Q is
+// loaded once into A fragments; K and V tiles (64 keys) are double-buffered
+// by cp.async, the next tile's load overlapping the current products; the
+// walk stops after the tile that holds the batch row's last valid key.
+// Shared memory 46,592 B (Q / output staging 9 KB, K and V 2 x 18 KB, the
+// keys' additive terms); ptxas: 128 registers at __launch_bounds__(128, 4),
+// 44 B of spill stores, 4 blocks (16 warps) per SM. Times, bounds and
+// SDPA's times beside them: chip_smoke.py's flash phase, PERF.md row 11a.
+// The backward launches keep the wmma design (16x16x16 fragments through
+// shared memory); no path reaches them.
 #include "common.cuh"
 #include <mma.h>
 
@@ -76,16 +91,39 @@ __device__ __forceinline__ void fa_mm_abt(FaC& acc, const bf16* a, const bf16* b
 }
 
 // ---------------------------------------------------------------------------
-// Forward. Grid (ceil(Lq / 64), B*H); warp w owns query rows 16w..16w+15.
+// Forward. Grid (ceil(Lq / 64), B*H), 4 warps; warp w owns query rows
+// 16w..16w+15 and keeps their scores, probabilities, running max and sum and
+// output in registers (mma.sync m16n8k16 fragments): lane (g, t) holds rows
+// g and g + 8 and, of each 8-key or 8-column block, columns 2t and 2t + 1.
 // ---------------------------------------------------------------------------
+constexpr int FA_FWD_MIN_BLOCKS = 4;  // blocks per SM asked of ptxas
+
 struct FaFwdSmem {
-  bf16 q[FA_T * FA_LD], k[FA_T * FA_LD], v[FA_T * FA_LD];
-  float s[FA_WARPS][16 * FA_T];  // scores, then the tile's p.v
-  float o[FA_WARPS][16 * FA_D];  // running output
-  bf16 p[FA_WARPS][16 * FA_LD];  // bf16 probabilities
+  bf16 q[FA_T * FA_LD];                  // the query tile, then the bf16 output
+  bf16 k[2][FA_T * FA_LD], v[2][FA_T * FA_LD];  // double-buffered key tiles
+  float kadd[2][FA_T];                   // per key: 0, the pad mask, or -inf past Lk
+  int last[FA_WARPS];                    // the batch row's last valid key, per warp
 };
 
-__global__ void __launch_bounds__(FA_THREADS)
+// key tile t (keys 64t..) of K and V into buffer buf by cp.async, zero past
+// Lk, and the keys' additive terms
+__device__ __forceinline__ void fa_stage(FaFwdSmem& S, int buf, int j0, const bf16* kh,
+                                         const bf16* vh, const unsigned char* padb, int Lk) {
+  for (int i = threadIdx.x; i < FA_T * (FA_D / 8); i += FA_THREADS) {
+    const int r = i >> 3, c8 = (i & 7) * 8;
+    const bool ok = j0 + r < Lk;
+    const size_t off = (size_t)(ok ? j0 + r : 0) * FA_D + c8;
+    sv_cp16(S.k[buf] + r * FA_LD + c8, kh + off, ok ? 16 : 0);
+    sv_cp16(S.v[buf] + r * FA_LD + c8, vh + off, ok ? 16 : 0);
+  }
+  if (threadIdx.x < FA_T) {
+    const int key = j0 + threadIdx.x;
+    S.kadd[buf][threadIdx.x] =
+        key >= Lk ? -INFINITY : (padb != nullptr && padb[key]) ? FA_MASK : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(FA_THREADS, FA_FWD_MIN_BLOCKS)
 fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const unsigned char* __restrict__ pad,
               const float* __restrict__ ab, bf16* __restrict__ o, float* __restrict__ lout,
@@ -93,100 +131,175 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char fa_smem[];
   FaFwdSmem& S = *reinterpret_cast<FaFwdSmem*>(fa_smem);
   const int bh = blockIdx.y, q0 = blockIdx.x * FA_T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const bf16* qh = q + (size_t)bh * Lq * FA_D;
   const bf16* kh = k + (size_t)bh * Lk * FA_D;
   const bf16* vh = v + (size_t)bh * Lk * FA_D;
   const unsigned char* padb = pad ? pad + (size_t)(bh / H) * Lk : nullptr;
   const float* abh = ab ? ab + (size_t)bh * Lq * Lk : nullptr;
 
-  fa_load_tile(qh, q0, Lq, S.q);
-  float* sw = S.s[warp];
-  float* ow = S.o[warp];
-  bf16* pw = S.p[warp];
-  for (int i = lane; i < 16 * FA_D; i += 32) ow[i] = 0.f;
-  // the warp walks its 16 rows; lane owns columns lane and lane + 32, so
-  // shared memory is read without bank conflicts and ab rows coalesce.
-  // Each lane keeps every row's running max and sum (the same in all lanes)
-  const int row0 = q0 + warp * 16;
-  float m[16], l[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  // queries (once) and the first key tile in flight while the pad row is read
+  for (int i = tid; i < FA_T * (FA_D / 8); i += FA_THREADS) {
+    const int r = i >> 3, c8 = (i & 7) * 8;
+    const bool ok = q0 + r < Lq;
+    sv_cp16(S.q + r * FA_LD + c8, qh + (size_t)(ok ? q0 + r : 0) * FA_D + c8, ok ? 16 : 0);
   }
-
-  for (int j0 = 0; j0 < Lk; j0 += FA_T) {
-    __syncthreads();  // the previous tile's K, V are no longer read
-    fa_load_tile(kh, j0, Lk, S.k);
-    fa_load_tile(vh, j0, Lk, S.v);
+  fa_stage(S, 0, 0, kh, vh, padb, Lk);
+  sv_cp_commit();
+  // The walk stops after the tile that holds the batch row's last valid key:
+  // a later tile is all pads, so alpha = exp(0) = 1 and every p = exp(MASK -
+  // m) = 0 for a row with a valid key, and skipping it changes no bit. A
+  // row whose keys are all pads walks every tile (its output is the mean of v).
+  int kv_end = Lk;
+  if (padb != nullptr) {
+    int last = -1;
+    for (int j = tid; j < Lk; j += FA_THREADS)
+      if (!padb[j]) last = j;
+    last = __reduce_max_sync(SV_FULL_MASK, last);
+    if (lane == 0) S.last[warp] = last;
     __syncthreads();
-#pragma unroll
-    for (int ct = 0; ct < FA_T / 16; ++ct) {
-      FaC acc;
-      wmma::fill_fragment(acc, 0.f);
-      fa_mm_abt(acc, S.q + warp * 16 * FA_LD, S.k + ct * 16 * FA_LD);
-      wmma::store_matrix_sync(sw + ct * 16, acc, FA_T, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
-      const float* abr = row < Lq ? abh : nullptr;
-      float x[2], mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j, key = j0 + c;
-        x[j] = key < Lk ? fa_logit(sw[r * FA_T + c], abr, padb, row, key, Lk) : -INFINITY;
-        mx = fmaxf(mx, x[j]);
-      }
-      const float m_new = fmaxf(m[r], sv_warp_max(mx));
-      const float alpha = expf(__fsub_rn(m[r], m_new));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const float p = j0 + c < Lk ? expf(__fsub_rn(x[j], m_new)) : 0.f;
-        sum = __fadd_rn(sum, p);
-        pw[r * FA_LD + c] = __float2bfloat16_rn(p);
-        ow[r * FA_D + c] = __fmul_rn(ow[r * FA_D + c], alpha);
-      }
-      l[r] = __fadd_rn(__fmul_rn(alpha, l[r]), sv_warp_sum(sum));
-      m[r] = m_new;
-    }
-    __syncwarp();
-    // the tile's bf16(p) @ v into the score scratch, then o += it
-#pragma unroll
-    for (int dt = 0; dt < FA_D / 16; ++dt) {
-      FaC acc;
-      wmma::fill_fragment(acc, 0.f);
-      FaA fa;
-      FaB fb;
-#pragma unroll
-      for (int kk = 0; kk < FA_T; kk += 16) {
-        wmma::load_matrix_sync(fa, pw + kk, FA_LD);
-        wmma::load_matrix_sync(fb, S.v + kk * FA_LD + dt * 16, FA_LD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sw + dt * 16, acc, FA_D, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int e = lane; e < 16 * FA_D; e += 32) ow[e] = __fadd_rn(ow[e], sw[e]);
-    __syncwarp();
+    for (int w = 0; w < FA_WARPS; ++w) last = max(last, S.last[w]);
+    if (last >= 0) kv_end = last + 1;
   }
+  const int ntiles = (kv_end + FA_T - 1) / FA_T;
+
+  uint32_t qa[FA_D / 16][4];  // A fragments of the warp's 16 query rows
+  float oacc[FA_D / 8][4];    // running output, 8 column blocks
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = row0 + r;
-    if (row >= Lq) break;
-    bf16* orow = o + ((size_t)bh * Lq + row) * FA_D;
+  for (int d = 0; d < FA_D / 8; ++d)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = lane + 32 * j;
-      orow[c] = __float2bfloat16_rn(__fdiv_rn(ow[r * FA_D + c], l[r]));
+    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1, j0 = t * FA_T;
+    if (t + 1 < ntiles) {  // the next tile loads while this one is used
+      fa_stage(S, buf ^ 1, j0 + FA_T, kh, vh, padb, Lk);
+      sv_cp_commit();
+      sv_cp_wait<1>();
+    } else {
+      sv_cp_wait<0>();
     }
-    if (lane == 0) {
-      lout[(size_t)bh * Lq + row] = l[r];
-      mout[(size_t)bh * Lq + row] = m[r];
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < FA_D / 16; ++kk)
+        sv_ldsm4(qa[kk], S.q + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * FA_LD +
+                             kk * 16 + (lane >> 4) * 8);
+    }
+    // scores s = q k^T of 16 rows x 64 keys
+    float s[FA_T / 8][4];
+#pragma unroll
+    for (int n = 0; n < FA_T / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    const bf16* kb = S.k[buf];
+#pragma unroll
+    for (int kk = 0; kk < FA_D / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < FA_T / 16; ++np) {
+        uint32_t b[4];
+        sv_ldsm4(b, kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * FA_LD + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        sv_mma(s[2 * np], qa[kk], b[0], b[1]);
+        sv_mma(s[2 * np + 1], qa[kk], b[2], b[3]);
+      }
+    // logits s [+ ab] + the key's term, and the rows' tile maxima
+    const float* kadd = S.kadd[buf];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < FA_T / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + t4 * 2 + (e & 1);
+        float x = s[n][e];
+        if (abh != nullptr) {
+          const int row = q0 + warp * 16 + g + (e >> 1) * 8;
+          if (row < Lq && j0 + c < Lk) x = __fadd_rn(x, abh[(size_t)row * Lk + j0 + c]);
+        }
+        x = __fadd_rn(x, kadd[c]);
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mnew[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the quad holds the row: two shuffles
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(SV_FULL_MASK, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(SV_FULL_MASK, mx[r], 2));
+      mnew[r] = fmaxf(mrow[r], mx[r]);
+      alpha[r] = expf(__fsub_rn(mrow[r], mnew[r]));
+    }
+    // p = exp(x - m_new); its bf16 pairs are the A fragments of p.v
+    uint32_t pa[FA_T / 16][4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < FA_T / 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = expf(__fsub_rn(s[n][e], mnew[e >> 1]));
+      sum[0] = __fadd_rn(__fadd_rn(sum[0], p[0]), p[1]);
+      sum[1] = __fadd_rn(__fadd_rn(sum[1], p[2]), p[3]);
+      pa[n >> 1][(n & 1) * 2] = sv_pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = sv_pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tot = __fadd_rn(sum[r], __shfl_xor_sync(SV_FULL_MASK, sum[r], 1));
+      tot = __fadd_rn(tot, __shfl_xor_sync(SV_FULL_MASK, tot, 2));
+      lrow[r] = __fadd_rn(__fmul_rn(alpha[r], lrow[r]), tot);
+      mrow[r] = mnew[r];
+    }
+    // the tile's bf16(p) v in f32, then o = o * alpha + it
+    float pv[FA_D / 8][4];
+#pragma unroll
+    for (int d = 0; d < FA_D / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[d][e] = 0.f;
+    const bf16* vb = S.v[buf];
+#pragma unroll
+    for (int kk = 0; kk < FA_T / 16; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < FA_D / 16; ++dp) {
+        uint32_t b[4];
+        sv_ldsm4_t(b, vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * FA_LD + dp * 16 +
+                          (lane >> 4) * 8);
+        sv_mma(pv[2 * dp], pa[kk], b[0], b[1]);
+        sv_mma(pv[2 * dp + 1], pa[kk], b[2], b[3]);
+      }
+#pragma unroll
+    for (int d = 0; d < FA_D / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oacc[d][e] = __fadd_rn(__fmul_rn(oacc[d][e], alpha[e >> 1]), pv[d][e]);
+    __syncthreads();  // buffer buf is free for the load of tile t + 2
+  }
+  // o / l in bf16 through the warp's own rows of the query tile, then
+  // 16-byte rows out
+  bf16* ow = S.q + warp * 16 * FA_LD;
+#pragma unroll
+  for (int d = 0; d < FA_D / 8; ++d)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(ow + (g + r * 8) * FA_LD + d * 8 + t4 * 2) =
+          sv_pack_bf16(__fdiv_rn(oacc[d][2 * r], lrow[r]),
+                       __fdiv_rn(oacc[d][2 * r + 1], lrow[r]));
+  __syncwarp();
+  const int row0 = q0 + warp * 16;
+  for (int i = lane; i < 16 * (FA_D / 8); i += 32) {
+    const int r = i >> 3, c8 = (i & 7) * 8;
+    if (row0 + r < Lq)
+      *reinterpret_cast<uint4*>(o + ((size_t)bh * Lq + row0 + r) * FA_D + c8) =
+          *reinterpret_cast<const uint4*>(ow + r * FA_LD + c8);
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + r * 8;
+      if (row < Lq) {
+        lout[(size_t)bh * Lq + row] = lrow[r];
+        mout[(size_t)bh * Lq + row] = mrow[r];
+      }
     }
   }
 }

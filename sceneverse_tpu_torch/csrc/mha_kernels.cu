@@ -181,17 +181,6 @@ __device__ __forceinline__ void sv_store(float* dst, const Acc (&c)[N], int ld) 
   for (int j = 0; j < N; ++j) wmma::store_matrix_sync(dst + 16 * j, c[j], ld, wmma::mem_row_major);
 }
 
-// ------------------------------------------------------------ cp.async
-__device__ __forceinline__ void sv_cp16(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void sv_cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void sv_cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // rows [r0, r0 + ROWS) of one head (row r at src + r * D) -> dst
 // (ROWS x SvTile<T>::LD), zero past nrows
 template <int ROWS, typename T>

@@ -3,24 +3,32 @@
 // rows, forward and backward, with the activations kept on chip.
 //
 // Replaces the four Pallas kernels of sceneverse_tpu/ops/pallas/sa_train.py:
-//   mode 0 sa_stats      _stats_kernel      (:103): sum and Gram of bf16(h_upto)
-//   mode 1 sa_pool       _pool_kernel       (:210): max / first argmax of f32 h3
-//   mode 2 sa_stats_bwd  _stats_bwd_kernel  (:184): dh = dS + h (dG + dG^T), back
-//   mode 3 sa_pool_bwd   _pool_bwd_kernel   (:232): d_pooled to the argmax slot, back
+//   sv_sa_train mode 0  sa_stats      _stats_kernel      (:103): sum and Gram of bf16(h_upto)
+//   sv_sa_train mode 1  sa_pool       _pool_kernel       (:210): max / first argmax of f32 h3
+//   sv_sa_train mode 2  sa_stats_bwd  _stats_bwd_kernel  (:184): dh = dS + h (dG + dG^T), back
+//   sv_sa_pool_bwd      sa_pool_bwd   _pool_bwd_kernel   (:232): d_pooled to the argmax slot, back
 //
-// Every product has bf16 operands and f32 accumulation (nvcuda::wmma
-// 16x16x16 tensor-core fragments); h = relu(u * a + b) in f32 without FMA
-// contraction, rounded to bf16 for the next layer and the moments, as the
-// TPU kernels and the plain twins in ops/sa_train.py do. A block walks row
-// tiles of TM rows (whole centers for the pool): the tile's rows go to
-// shared memory as bf16, the chain is recomputed there, the weights are read
-// from device memory (L2). Sums, Gram, dW, da and db go to a partial slot
-// owned by the block; st_reduce_kernel, launched next from this file, sums
-// the slots in a fixed order. No float atomics, so two runs are
-// bit-identical. Bound: the bf16 products (tensor cores) at the GPS widths;
-// wgmma / TMA and register-resident weight-gradient sums are later work.
+// Every product has bf16 operands and f32 accumulation on the tensor cores;
+// h = relu(u * a + b) in f32 without FMA contraction, rounded to bf16 for
+// the next layer and the moments, as the TPU kernels and the plain twins in
+// ops/sa_train.py do. No float atomics: partial sums are reduced in a fixed
+// order (st_reduce_kernel), so two runs are bit-identical.
+//
+// Modes 0-2 (st_fwd_kernel, st_bwd_kernel, nvcuda::wmma 16x16x16): a block
+// walks row tiles of TM rows (whole centers for the pool): the tile's rows
+// go to shared memory as bf16, the chain is recomputed there, the weights
+// are read from device memory (L2); sums, Gram, dW, da and db go to a
+// partial slot owned by the block.
+//
+// sa_pool_bwd has its own kernels (pb_*, the note at their section below):
+// a chain of tiled mma.sync GEMMs over the rows with the bf16 activations
+// and row cotangents in a workspace, the weight-gradient and column sums in
+// registers. Bound: the bf16 products at the GPS widths at 989 TFLOP/s.
+// Times and bounds: chip_smoke.py's sa_train phase, PERF.md row 10.
 #include "common.cuh"
 #include <mma.h>
+
+#include <algorithm>
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -29,7 +37,8 @@ constexpr int ST_WARPS = 8;
 constexpr int ST_THREADS = ST_WARPS * 32;
 constexpr int ST_PAD = 8;  // bf16 elements of padding per shared-memory row
 
-enum { M_STATS = 0, M_POOL = 1, M_STATS_BWD = 2, M_POOL_BWD = 3 };
+// sv_sa_train modes; sa_pool_bwd has its own entry point, sv_sa_pool_bwd
+enum { M_STATS = 0, M_POOL = 1, M_STATS_BWD = 2 };
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
@@ -55,8 +64,6 @@ struct StArgs {
   int* arg;               // pool: [R/ns][H3] slot
   const bf16* dsym;       // stats bwd: bf16(dG + dG^T) [H][H]
   const float* dS;        // stats bwd: [H]
-  const float* dpool;     // pool bwd: [R/ns][H3]
-  const int* argin;       // pool bwd: [R/ns][H3]
   float* dx;              // bwd: [R][C] or null
   float* pdw;             // bwd: [P][dwlen] (dW1 | dW2 | dW3)
   float* pds;             // bwd: [P][TM/16][dslen] (da1 db1 | da2 db2 | ...)
@@ -71,7 +78,7 @@ __host__ __device__ inline int st_align(int b) { return (b + 127) & ~127; }
 
 // Shared-memory plan, the same on host and device (byte offsets).
 __host__ __device__ inline StSmem st_smem(int mode, int K1, int upto, const int* H, int TM) {
-  const bool pool = mode == M_POOL || mode == M_POOL_BWD;
+  const bool pool = mode == M_POOL;
   const int nl = pool ? 3 : upto;
   const int nh = pool ? 2 : upto;  // layers whose bf16 h stays in shared memory
   StSmem s;
@@ -86,7 +93,7 @@ __host__ __device__ inline StSmem st_smem(int mode, int K1, int upto, const int*
   for (int j = 0; j < nl; ++j) hmax = H[j] > hmax ? H[j] : hmax;
   for (int i = 0; i < 2; ++i) {
     s.du[i] = off;
-    if (mode >= M_STATS_BWD) off += st_align(TM * (hmax + ST_PAD) * 2);
+    if (mode == M_STATS_BWD) off += st_align(TM * (hmax + ST_PAD) * 2);
   }
   s.scr = off;
   off += st_align(ST_WARPS * 512 * 4);
@@ -275,7 +282,7 @@ __global__ void __launch_bounds__(ST_THREADS) st_fwd_kernel(StArgs A) {
   }
 }
 
-// modes 2 and 3: recompute the chain, then back through layers nl..1
+// mode 2: recompute the chain, then back through layers nl..1
 __global__ void __launch_bounds__(ST_THREADS) st_bwd_kernel(StArgs A) {
   extern __shared__ __align__(128) unsigned char st_sm[];
   const int H[3] = {A.L[0].h, A.L[1].h, A.L[2].h};
@@ -285,8 +292,7 @@ __global__ void __launch_bounds__(ST_THREADS) st_bwd_kernel(StArgs A) {
                  reinterpret_cast<bf16*>(st_sm + S.du[1])};
   float* scr = reinterpret_cast<float*>(st_sm + S.scr);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool stats = A.mode == M_STATS_BWD;
-  const int nl = A.nl, nh = stats ? nl : 2;
+  const int nl = A.nl;
   int hmax = 0;
   for (int j = 0; j < nl; ++j) hmax = max(hmax, H[j]);
   const int ldd = hmax + ST_PAD;
@@ -301,7 +307,7 @@ __global__ void __launch_bounds__(ST_THREADS) st_bwd_kernel(StArgs A) {
     __syncthreads();
     const bf16* in = xs;
     int ldin = A.K1 + ST_PAD;
-    for (int j = 0; j < nh; ++j) {
+    for (int j = 0; j < nl; ++j) {
       bf16* out = reinterpret_cast<bf16*>(st_sm + S.h[j]);
       st_fwd_layer(A, A.L[j], in, ldin, out, H[j] + ST_PAD, scr, EPI_STORE, r0, nullptr,
                    first, nullptr, nullptr);
@@ -332,7 +338,7 @@ __global__ void __launch_bounds__(ST_THREADS) st_bwd_kernel(StArgs A) {
         if (j < nl - 1) {  // d = du_{j+1} @ W_{j+1}^T
           const StLayer& N = A.L[j + 1];
           st_mm_t(acc_d, dnext + r * 16 * ldd, ldd, N.w + (size_t)c * 16 * N.h, N.h, N.h);
-        } else if (stats) {  // the bf16(h) @ bf16(dG + dG^T) term
+        } else {  // the bf16(h) @ bf16(dG + dG^T) term
           const bf16* hl = reinterpret_cast<const bf16*>(st_sm + S.h[j]);
           st_mm(acc_d, hl + r * 16 * (L.h + ST_PAD), L.h + ST_PAD, A.dsym + c * 16, L.h, L.h);
         }
@@ -342,15 +348,7 @@ __global__ void __launch_bounds__(ST_THREADS) st_bwd_kernel(StArgs A) {
         for (int e = lane; e < 256; e += 32) {
           const int rr = e >> 4, col = c * 16 + (e & 15), row = r0 + r * 16 + rr;
           float d = ws1[e];
-          if (j == nl - 1) {
-            if (stats) {
-              d = A.dS[col] + d;
-            } else if (row < A.R) {
-              const int center = row / A.ns;
-              const size_t o = (size_t)center * L.h + col;
-              d = A.argin[o] == row - center * A.ns ? A.dpool[o] : 0.f;
-            }
-          }
+          if (j == nl - 1) d = A.dS[col] + d;
           if (row >= A.R) d = 0.f;
           const float u = ws0[e];
           const float dz = st_affine(u, L.a[col], L.b[col]) > 0.f ? d : 0.f;
@@ -427,6 +425,7 @@ static int st_reduce(const float* part, int Q, int L, float* out, cudaStream_t s
 }
 
 extern "C" int sv_sa_train_smem(int mode, int C, int upto, int H1, int H2, int H3, int TM) {
+  if (mode < M_STATS || mode > M_STATS_BWD) return -1;
   const int H[3] = {H1, H2, H3};
   return st_smem(mode, (C + 15) / 16 * 16, upto, H, TM).total;
 }
@@ -436,9 +435,9 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
                            const bf16* w2, const float* a2, const float* b2, const bf16* w3,
                            const float* a3, const float* b3, int H1, int H2, int H3, int TM,
                            int P, int smem, float* sum, float* gram, float* pooled, int* arg,
-                           const bf16* dsym, const float* dS, const float* dpool,
-                           const int* argin, float* dx, float* dw, float* ds, float* part_a,
-                           float* part_b, void* stream) {
+                           const bf16* dsym, const float* dS, float* dx, float* dw,
+                           float* ds, float* part_a, float* part_b, void* stream) {
+  if (mode < M_STATS || mode > M_STATS_BWD) return (int)cudaErrorInvalidValue;
   StArgs A = {};
   A.mode = mode;
   A.x = x;
@@ -449,7 +448,7 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
   A.ns = ns;
   A.need_dx = need_dx;
   A.TM = TM;
-  A.nl = (mode == M_POOL || mode == M_POOL_BWD) ? 3 : upto;
+  A.nl = mode == M_POOL ? 3 : upto;
   const bf16* w[3] = {w1, w2, w3};
   const float* a[3] = {a1, a2, a3};
   const float* b[3] = {b1, b2, b3};
@@ -481,8 +480,6 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
   }
   A.dsym = dsym;
   A.dS = dS;
-  A.dpool = dpool;
-  A.argin = argin;
   A.dx = dx;
   A.pdw = part_a;
   A.pds = part_b;
@@ -497,4 +494,613 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
   if ((e = (int)cudaGetLastError())) return e;
   if ((e = st_reduce(part_a, P, A.dwlen, dw, st))) return e;
   return st_reduce(part_b, P * g16, A.dslen, ds, st);
+}
+
+// ===========================================================================
+// sa_pool_bwd (sv_sa_pool_bwd): a chain of tiled tensor-core GEMMs over
+// the rows.
+//
+// Split: one pass per layer, with the bf16 activations and row cotangents
+// (exactly the values the twin rounds to bf16) kept in a device workspace.
+// Every sum of dW, da and db runs over all R rows, and du_j needs every
+// column of du_{j+1}; a block that kept all three layers' dW in registers
+// would need 264 KB (SA2) to 1.6 MB (SA3). So each pass is a plain tiled
+// product whose block owns one output tile and keeps its sums in registers
+// for every row it walks:
+//   cvt    xb = bf16(x), zero-padded to K1 columns
+//   FWD    h1 = bf16(relu(xb W1 * a1 + b1)), h2 likewise
+//   ROUTE  u3 = h2 W3, d3 = d_pooled at the saved argmax slot, else 0;
+//          du3 = bf16(dz a3), da3 += dz u3, db3 += dz  (dz = d3 where
+//          u3 a3 + b3 > 0)
+//   DUAL   u2 = h1 W2 and d2 = du3 W3^T in one block; du2, da2, db2; then
+//          layer 1 from xb W1 and du2 W2^T
+//   DX     dx = du1 W1^T, the first C columns (when need_dx)
+//   DW     dW_j = in_j^T du_j, split over row chunks; each block walks its
+//          chunk with the 64 x 64 tile's sums in registers and writes its
+//          partial once
+// then st_reduce sums the row-block partials of da / db and the chunk
+// partials of dW in a fixed order (no float atomics: two runs agree bit for
+// bit). Tiles: 64 x 64 outputs, 4 warps of 32 x 32 (mma.sync m16n8k16 bf16,
+// f32 sums), k slices of 32. Row passes (pb_rows_kernel) are persistent,
+// one wave at their occupancy: a block loads the weight slices of its 64
+// columns into shared memory once (where they are at most 256 deep; deeper
+// ones stream beside A), then walks its 64-row tiles as one stream of A
+// slices through a 3-slot cp.async ring that runs across tile boundaries;
+// a and b of its columns and, for the routing, the tile's argmax slots and
+// d_pooled (prefetched with the tile's first slice) sit in shared memory;
+// the ReLU mask, the routing and the a / b scaling run on the accumulator
+// registers; the output tile leaves through shared memory in 16-byte rows;
+// da / db column sums stay in registers until the block's one partial
+// write. The dW pass (pb_dw_kernel) walks a row chunk per block through a
+// 2-slot ring (20 KB static). Shared memory per row pass at SA2: 52-88 KB
+// (2-4 blocks per SM). ptxas: pb_rows_kernel 100-128 registers at
+// __launch_bounds__(128, 4), the dual pass spilling 140 B; pb_dw_kernel 105.
+// The workspace traffic (about 2.4 GB written at SA2) costs less than
+// recomputing the chain once per column slice.
+// ===========================================================================
+constexpr int PB_BM = 64, PB_BN = 64, PB_BK = 32, PB_THREADS = 128;
+constexpr int PB_LDK = PB_BK + 8;        // bf16 stride of a [64][32] tile
+constexpr int PB_LDW = PB_BM + 8;        // bf16 stride of a [32][64] tile
+constexpr int PB_TILE = PB_BM * PB_LDK;  // bf16 per staged tile (>= 32 * 72)
+constexpr int PB_MIN_BLOCKS = 4;         // blocks per SM asked of ptxas
+
+enum { PB_FWD = 0, PB_ROUTE = 1, PB_DUAL = 2, PB_DX = 3 };
+
+// an [NR][NC] tile at (r0, c0) of a row-major bf16 matrix (ld) into shared
+// memory (stride NC + 8); zero outside rows < rlim, cols < clim
+template <int NR, int NC>
+__device__ __forceinline__ void pb_load(bf16* dst, const bf16* src, int ld, int r0, int c0,
+                                        int rlim, int clim) {
+  constexpr int CH = NC / 8;
+  for (int i = threadIdx.x; i < NR * CH; i += PB_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < rlim && c0 + c < clim;
+    sv_cp16(dst + r * (NC + 8) + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok ? 16 : 0);
+  }
+}
+
+// acc[32 x 32 per warp] += the staged 32-deep k slice: A staged [64][32]
+// (AK false) or [32][64] (AK true), B staged [32][64] (BNM false) or
+// [64][32] (BNM true)
+template <bool AK, bool BNM>
+__device__ __forceinline__ void pb_mma_step(float (&acc)[2][4][4], const bf16* sa,
+                                            const bf16* sb, int ldb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int kk = 0; kk < PB_BK; kk += 16) {
+    uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int mb = wm * 32 + mi * 16;
+      if (AK)
+        sv_ldsm4_t(af[mi], sa + (kk + (lane >> 4) * 8 + (lane & 7)) * PB_LDW + mb +
+                               ((lane >> 3) & 1) * 8);
+      else
+        sv_ldsm4(af[mi], sa + (mb + (lane & 7) + ((lane >> 3) & 1) * 8) * PB_LDK + kk +
+                             (lane >> 4) * 8);
+    }
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      const int nb = wn * 32 + np * 16;
+      if (BNM)
+        sv_ldsm4(bfr[np], sb + (nb + (lane & 7) + (lane >> 4) * 8) * ldb + kk +
+                              ((lane >> 3) & 1) * 8);
+      else
+        sv_ldsm4_t(bfr[np], sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + nb +
+                                (lane >> 4) * 8);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        sv_mma(acc[mi][2 * np], af[mi], bfr[np][0], bfr[np][1]);
+        sv_mma(acc[mi][2 * np + 1], af[mi], bfr[np][2], bfr[np][3]);
+      }
+  }
+}
+
+// acc += A[m0.., k0..k1) B[k0..k1), n0..]: A stored [M][K] (AK false) or
+// [K][M] (AK true); B stored [K][N] (BNM false) or [N][K] (BNM true); a
+// two-stage cp.async ring in sm. Ends with a block barrier.
+template <bool AK, bool BNM>
+__device__ __forceinline__ void pb_mainloop(float (&acc)[2][4][4], const bf16* A, int lda,
+                                            const bf16* B, int ldb, int M, int N, int m0,
+                                            int n0, int k0, int k1, bf16* sm) {
+  auto stage = [&](int buf, int k) {
+    bf16* sa = sm + buf * PB_TILE;
+    bf16* sb = sm + (2 + buf) * PB_TILE;
+    if (AK)
+      pb_load<PB_BK, PB_BM>(sa, A, lda, k, m0, k1, M);
+    else
+      pb_load<PB_BM, PB_BK>(sa, A, lda, m0, k, M, k1);
+    if (BNM)
+      pb_load<PB_BN, PB_BK>(sb, B, ldb, n0, k, N, k1);
+    else
+      pb_load<PB_BK, PB_BN>(sb, B, ldb, k, n0, k1, N);
+  };
+  const int nk = (k1 - k0 + PB_BK - 1) / PB_BK;
+  stage(0, k0);
+  sv_cp_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {
+      stage(buf ^ 1, k0 + (kt + 1) * PB_BK);
+      sv_cp_commit();
+      sv_cp_wait<1>();
+    } else {
+      sv_cp_wait<0>();
+    }
+    __syncthreads();
+    pb_mma_step<AK, BNM>(acc, sm + buf * PB_TILE, sm + (2 + buf) * PB_TILE,
+                         BNM ? PB_LDK : PB_LDW);
+    __syncthreads();
+  }
+}
+
+struct PbRows {
+  const bf16* a1;  // u = a1 @ w1: a1 [M][K1], w1 [K1][N] ([N][K1] in PB_DX)
+  const bf16* w1;
+  int lda1, ldw1, K1;
+  const bf16* a2;  // PB_DUAL: d = a2 @ w2^T, a2 [M][K2], w2 [N][K2]
+  const bf16* w2;
+  int lda2, ldw2, K2;
+  const float* sa;  // scale and shift (N)
+  const float* sb;
+  const float* dpool;  // PB_ROUTE: [M / ns][N]
+  const int* argin;
+  int ns;
+  bf16* out;  // h (PB_FWD) or du, [M][N]
+  float* outf;  // PB_DX: [M][Nreal]
+  int Nreal;
+  float* pds;  // da | db partials, [gridDim.y][2N]
+  int M, N;
+};
+
+constexpr int PB_NS = 3;                    // stages of the row passes' A ring
+constexpr int PB_CENTERS = PB_BM / 16 + 1;  // centers a 64-row tile touches (ns >= 16)
+constexpr int PB_LDO = PB_BN + 8;           // stride of the staged bf16 output tile
+constexpr int PB_LDF = PB_BN + 4;           // stride of the staged f32 output tile
+constexpr int PB_ATILE = PB_BM * PB_LDK;    // bf16 of one staged [64][32] A slice
+
+// Dynamic shared memory of a row pass (bytes, 128-aligned pieces): the
+// block's weight slices, resident for the whole pass where their depth is
+// at most PB_KRES (w1: [K1][64] k-major, or [64][K1] in PB_DX; w2:
+// [64][K2]) and otherwise streamed beside A; the ring of PB_NS slots (an A
+// slice, and a weight slice where one is streamed); the staged output tile;
+// in PB_ROUTE three tiles' argmax slots and d_pooled.
+constexpr int PB_KRES = 256;
+struct PbRowsSmem {
+  int w1, w2, ring, slot, out, route, total;
+  bool res1, res2;
+};
+__host__ __device__ inline int pb_kpad(int K) { return (K + PB_BK - 1) / PB_BK * PB_BK; }
+
+__host__ __device__ inline PbRowsSmem pb_rows_smem(int mode, int K1, int K2) {
+  PbRowsSmem s;
+  int off = 0;
+  K1 = pb_kpad(K1);  // whole 32-deep slices, zero past K
+  K2 = pb_kpad(K2);
+  s.res1 = K1 <= PB_KRES;
+  s.res2 = mode == PB_DUAL && K2 <= PB_KRES;
+  s.w1 = off;
+  if (s.res1) off += st_align((mode == PB_DX ? PB_BN * (K1 + 8) : K1 * (PB_BN + 8)) * 2);
+  s.w2 = off;
+  if (s.res2) off += st_align(PB_BN * (K2 + 8) * 2);
+  s.ring = off;
+  s.slot = PB_ATILE + (!s.res1 || (mode == PB_DUAL && !s.res2) ? PB_TILE : 0);
+  off += PB_NS * s.slot * 2;
+  s.out = off;
+  off += st_align(PB_BM * PB_LDF * 4);
+  s.route = off;
+  if (mode == PB_ROUTE) off += 3 * 2 * PB_CENTERS * PB_BN * 4;
+  s.total = off;
+  return s;
+}
+
+// an [nr][nc] tile (nc a multiple of 8) at (r0, c0) of a row-major bf16
+// matrix into shared memory (stride nc + 8), zero outside rlim x clim
+__device__ __forceinline__ void pb_load_rt(bf16* dst, const bf16* src, int ld, int r0, int c0,
+                                           int nr, int nc, int rlim, int clim) {
+  const int ch = nc / 8;
+  for (int i = threadIdx.x; i < nr * ch; i += PB_THREADS) {
+    const int r = i / ch, c = (i - r * ch) * 8;
+    const bool ok = r0 + r < rlim && c0 + c < clim;
+    sv_cp16(dst + r * (nc + 8) + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src,
+            ok ? 16 : 0);
+  }
+}
+
+// The row passes. The block's weight slices go to shared memory once; the
+// block then walks the 64-row tiles blockIdx.y, + gridDim.y, ... of its 64
+// output columns as one stream of 32-deep A slices (both products' slices
+// in PB_DUAL), PB_NS - 1 slices in flight ahead of the one multiplied,
+// across tile boundaries, so a tile's epilogue overlaps the next tile's
+// loads.
+template <int MODE>
+__global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRows P) {
+  extern __shared__ __align__(128) unsigned char pb_dyn[];
+  __shared__ float s_a[PB_BN], s_b[PB_BN], red[2][2][PB_BN];
+  const PbRowsSmem L = pb_rows_smem(MODE, P.K1, P.K2);
+  bf16* w1s = reinterpret_cast<bf16*>(pb_dyn + L.w1);
+  bf16* w2s = reinterpret_cast<bf16*>(pb_dyn + L.w2);
+  bf16* ring = reinterpret_cast<bf16*>(pb_dyn + L.ring);
+  bf16* stage_h = reinterpret_cast<bf16*>(pb_dyn + L.out);
+  float* stage_f = reinterpret_cast<float*>(pb_dyn + L.out);
+  int* s_arg = reinterpret_cast<int*>(pb_dyn + L.route);  // [3][PB_CENTERS][64]
+  float* s_dp = reinterpret_cast<float*>(s_arg + 3 * PB_CENTERS * PB_BN);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * PB_BN, M = P.M, N = P.N;
+  const int K1p = pb_kpad(P.K1), K2p = pb_kpad(P.K2);
+  const int ldw1 = MODE == PB_DX ? K1p + 8 : PB_BN + 8, ldw2 = K2p + 8;
+  constexpr bool BWD = MODE == PB_ROUTE || MODE == PB_DUAL;
+  if (MODE != PB_DX)
+    for (int i = threadIdx.x; i < PB_BN; i += PB_THREADS) {
+      const int c = n0 + i;
+      s_a[i] = c < N ? P.sa[c] : 0.f;
+      s_b[i] = c < N ? P.sb[c] : 0.f;
+    }  // read after the stream's first barrier
+  // the weight slices, in the first commit group
+  if (L.res1) {
+    if (MODE == PB_DX)
+      pb_load_rt(w1s, P.w1, P.ldw1, n0, 0, PB_BN, K1p, N, P.K1);
+    else
+      pb_load_rt(w1s, P.w1, P.ldw1, 0, n0, K1p, PB_BN, P.K1, N);
+  }
+  if (L.res2) pb_load_rt(w2s, P.w2, P.ldw2, n0, 0, PB_BN, K2p, N, P.K2);
+  float cda[4][2], cdb[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) cda[ni][e] = cdb[ni][e] = 0.f;
+  float acc[2][4][4], accd[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = accd[mi][ni][e] = 0.f;
+
+  const int nM = (M + PB_BM - 1) / PB_BM;
+  const int ntile = (int)blockIdx.y < nM ? (nM - 1 - (int)blockIdx.y) / (int)gridDim.y + 1 : 0;
+  const int n1 = (P.K1 + PB_BK - 1) / PB_BK;
+  const int spt = n1 + (MODE == PB_DUAL ? (P.K2 + PB_BK - 1) / PB_BK : 0);
+  const int total = ntile * spt;
+  auto fetch = [&](int s) {  // A slice s of the stream into its ring slot
+    const int i = s / spt, j = s - i * spt;
+    const int m0 = (blockIdx.y + i * gridDim.y) * PB_BM;
+    bf16* sa = ring + (s % PB_NS) * L.slot;
+    bf16* sb = sa + PB_ATILE;
+    if (j < n1) {
+      const int k = j * PB_BK;
+      pb_load<PB_BM, PB_BK>(sa, P.a1, P.lda1, m0, k, M, P.K1);
+      if (!L.res1) {
+        if (MODE == PB_DX)
+          pb_load<PB_BN, PB_BK>(sb, P.w1, P.ldw1, n0, k, N, P.K1);
+        else
+          pb_load<PB_BK, PB_BN>(sb, P.w1, P.ldw1, k, n0, P.K1, N);
+      }
+    } else {
+      const int k = (j - n1) * PB_BK;
+      pb_load<PB_BM, PB_BK>(sa, P.a2, P.lda2, m0, k, M, P.K2);
+      if (!L.res2) pb_load<PB_BN, PB_BK>(sb, P.w2, P.ldw2, n0, k, N, P.K2);
+    }
+    if (MODE == PB_ROUTE && j == 0) {  // the tile's centers' slots and d_pooled
+      const int c_lo = m0 / P.ns, nctr = M / P.ns;
+      int* ga = s_arg + (i % 3) * PB_CENTERS * PB_BN;
+      float* gd = s_dp + (i % 3) * PB_CENTERS * PB_BN;
+      for (int t = threadIdx.x; t < PB_CENTERS * (PB_BN / 4); t += PB_THREADS) {
+        const int lc = t / (PB_BN / 4), c4 = (t - lc * (PB_BN / 4)) * 4;
+        const bool ok = c_lo + lc < nctr && n0 + c4 < N;
+        const size_t o = ok ? (size_t)(c_lo + lc) * N + n0 + c4 : 0;
+        sv_cp16(ga + lc * PB_BN + c4, P.argin + o, ok ? 16 : 0);
+        sv_cp16(gd + lc * PB_BN + c4, P.dpool + o, ok ? 16 : 0);
+      }
+    }
+  };
+  for (int s = 0; s < PB_NS - 1; ++s) {
+    if (s < total) fetch(s);
+    sv_cp_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    sv_cp_wait<PB_NS - 2>();
+    __syncthreads();  // slice s landed; slot (s - 1) % PB_NS is free
+    if (s + PB_NS - 1 < total) fetch(s + PB_NS - 1);
+    sv_cp_commit();
+    const int i = s / spt, j = s - i * spt;
+    const bf16* sa = ring + (s % PB_NS) * L.slot;
+    const bf16* sb = sa + PB_ATILE;  // a streamed weight slice
+    if (j < n1) {
+      if (MODE == PB_DX)
+        pb_mma_step<false, true>(acc, sa, L.res1 ? w1s + j * PB_BK : sb,
+                                 L.res1 ? ldw1 : PB_LDK);
+      else
+        pb_mma_step<false, false>(acc, sa, L.res1 ? w1s + j * PB_BK * ldw1 : sb,
+                                  L.res1 ? ldw1 : PB_LDW);
+    } else {
+      pb_mma_step<false, true>(accd, sa, L.res2 ? w2s + (j - n1) * PB_BK : sb,
+                               L.res2 ? ldw2 : PB_LDK);
+    }
+    if (j != spt - 1) continue;
+    // ---- epilogue of tile i
+    const int m0 = (blockIdx.y + i * gridDim.y) * PB_BM;
+    const int c_lo = m0 / P.ns;
+    const int* ga = s_arg + (i % 3) * PB_CENTERS * PB_BN;
+    const float* gd = s_dp + (i % 3) * PB_CENTERS * PB_BN;
+    int qoff[2][2], slot[2][2];  // the thread's 4 rows: center offset, slot
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + wm * 32 + mi * 16 + g + r * 8;
+        const int center = MODE == PB_ROUTE ? row / P.ns : 0;
+        qoff[mi][r] = (center - c_lo) * PB_BN;
+        slot[mi][r] = row - center * P.ns;
+      }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rl = wm * 32 + mi * 16 + g + r * 8, row = m0 + rl;
+          const int cl = wn * 32 + ni * 8 + t4 * 2;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float u = acc[mi][ni][r * 2 + e];
+            if (MODE == PB_FWD) {
+              y[e] = fmaxf(st_affine(u, s_a[cl + e], s_b[cl + e]), 0.f);
+            } else if (MODE == PB_DX) {
+              y[e] = u;
+            } else {
+              float d = 0.f;
+              if (row < M) {
+                if (MODE == PB_ROUTE) {
+                  const int q = qoff[mi][r] + cl + e;
+                  d = ga[q] == slot[mi][r] ? gd[q] : 0.f;
+                } else {
+                  d = accd[mi][ni][r * 2 + e];
+                }
+              }
+              const float dz = st_affine(u, s_a[cl + e], s_b[cl + e]) > 0.f ? d : 0.f;
+              y[e] = __fmul_rn(dz, s_a[cl + e]);
+              cda[ni][e] += __fmul_rn(dz, u);
+              cdb[ni][e] += dz;
+            }
+            acc[mi][ni][r * 2 + e] = 0.f;
+            accd[mi][ni][r * 2 + e] = 0.f;
+          }
+          if (MODE == PB_DX) {
+            stage_f[rl * PB_LDF + cl] = y[0];
+            stage_f[rl * PB_LDF + cl + 1] = y[1];
+          } else {
+            *reinterpret_cast<uint32_t*>(stage_h + rl * PB_LDO + cl) = sv_pack_bf16(y[0], y[1]);
+          }
+        }
+    __syncthreads();
+    if (MODE == PB_DX) {  // f32 rows of the first Nreal columns
+      for (int t = threadIdx.x; t < PB_BM * PB_BN; t += PB_THREADS) {
+        const int rl = t / PB_BN, cl = t - rl * PB_BN, c = n0 + cl;
+        if (m0 + rl < M && c < P.Nreal)
+          P.outf[(size_t)(m0 + rl) * P.Nreal + c] = stage_f[rl * PB_LDF + cl];
+      }
+    } else {  // 16-byte pieces of bf16 rows
+      for (int t = threadIdx.x; t < PB_BM * (PB_BN / 8); t += PB_THREADS) {
+        const int rl = t / (PB_BN / 8), c8 = (t % (PB_BN / 8)) * 8;
+        if (m0 + rl < M && n0 + c8 < N)
+          *reinterpret_cast<uint4*>(P.out + (size_t)(m0 + rl) * N + n0 + c8) =
+              *reinterpret_cast<const uint4*>(stage_h + rl * PB_LDO + c8);
+      }
+    }
+    // the staging tile is written again only after the next tile's first
+    // stream barrier
+  }
+  sv_cp_wait<0>();
+  if (BWD) {  // the block's column sums: over the quad rows, then the 2 warp rows
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float va = cda[ni][e], vb = cdb[ni][e];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          va += __shfl_xor_sync(SV_FULL_MASK, va, off);
+          vb += __shfl_xor_sync(SV_FULL_MASK, vb, off);
+        }
+        if (g == 0) {
+          const int cl = wn * 32 + ni * 8 + t4 * 2 + e;
+          red[0][wm][cl] = va;
+          red[1][wm][cl] = vb;
+        }
+      }
+    __syncthreads();
+    for (int t = threadIdx.x; t < PB_BN; t += PB_THREADS) {
+      const int c = n0 + t;
+      if (c < N) {
+        float* dst = P.pds + (size_t)blockIdx.y * 2 * N;
+        dst[c] = red[0][0][t] + red[0][1][t];
+        dst[N + c] = red[1][0][t] + red[1][1][t];
+      }
+    }
+  }
+}
+
+// dW = in^T du over the rows [z * chunk, (z + 1) * chunk): in [R][M],
+// du [R][N]; the tile's partial to part[z][M][N]
+__global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS)
+pb_dw_kernel(const bf16* __restrict__ in, int ldi, const bf16* __restrict__ du, int ldd, int M,
+             int N, int R, int chunk, float* __restrict__ part) {
+  __shared__ __align__(128) bf16 sm[4 * PB_TILE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t4 = lane & 3;
+  const int m0 = blockIdx.y * PB_BM, n0 = blockIdx.x * PB_BN;
+  const int k0 = blockIdx.z * chunk, k1 = min(R, k0 + chunk);
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  pb_mainloop<true, false>(acc, in, ldi, du, ldd, M, N, m0, n0, k0, k1, sm);
+  float* dst = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + wm * 32 + mi * 16 + g + r * 8;
+        const int c = n0 + wn * 32 + ni * 8 + t4 * 2;
+        if (row < M && c < N)
+          *reinterpret_cast<float2*>(dst + (size_t)row * N + c) =
+              make_float2(acc[mi][ni][r * 2], acc[mi][ni][r * 2 + 1]);
+      }
+}
+
+// xb[R][K1] = bf16(x[R][C]), zero in the padding columns; a warp per row
+__global__ void pb_cvt_kernel(const float* __restrict__ x, int R, int C, int K1,
+                              bf16* __restrict__ xb) {
+  const int lane = threadIdx.x & 31;
+  const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int nw = (gridDim.x * blockDim.x) >> 5;
+  for (int r = w0; r < R; r += nw)
+    for (int c = lane; c < K1; c += 32)
+      xb[(size_t)r * K1 + c] = __float2bfloat16_rn(c < C ? x[(size_t)r * C + c] : 0.f);
+}
+
+// Launch plan, the same for the workspace query and the launch.
+struct PbPlan {
+  int K1, H[3], kin[3], P[3], S[3], chunk[3];
+  size_t off_x, off_h[2], off_du[3], off_pdw[3], off_pds[3], total;
+};
+
+// blocks along the rows: one wave of persistent blocks at the pass's
+// occupancy (shared memory bound, at most PB_MIN_BLOCKS per SM)
+static int pb_rows_p(int mode, int M, int N, int K1, int K2, int sms) {
+  const int nM = (M + PB_BM - 1) / PB_BM, nN = (N + PB_BN - 1) / PB_BN;
+  const int per_block = pb_rows_smem(mode, K1, K2).total + 8 * 1024;  // + static, reserved
+  const int occ = std::max(1, std::min(PB_MIN_BLOCKS, 232448 / per_block));
+  return std::max(1, std::min(nM, (occ * sms + nN - 1) / nN));
+}
+
+static PbPlan pb_plan(int R, int C, int H1, int H2, int H3, int sms) {
+  PbPlan p = {};
+  p.K1 = (C + 15) / 16 * 16;
+  p.H[0] = H1, p.H[1] = H2, p.H[2] = H3;
+  p.kin[0] = p.K1, p.kin[1] = H1, p.kin[2] = H2;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    const size_t o = off;
+    off += (bytes + 255) / 256 * 256;
+    return o;
+  };
+  p.off_x = take((size_t)R * p.K1 * 2);
+  p.off_h[0] = take((size_t)R * H1 * 2);
+  p.off_h[1] = take((size_t)R * H2 * 2);
+  for (int j = 0; j < 3; ++j) p.off_du[j] = take((size_t)R * p.H[j] * 2);
+  for (int j = 0; j < 3; ++j) {
+    const int M = p.kin[j], N = p.H[j];
+    const int tiles = ((M + PB_BM - 1) / PB_BM) * ((N + PB_BN - 1) / PB_BN);
+    const int want = std::max(1, (2 * PB_MIN_BLOCKS * sms + tiles - 1) / tiles);
+    int chunk = (R + want - 1) / want;
+    chunk = (chunk + PB_BK - 1) / PB_BK * PB_BK;
+    p.chunk[j] = chunk;
+    p.S[j] = (R + chunk - 1) / chunk;
+    p.off_pdw[j] = take((size_t)p.S[j] * M * N * 4);
+    p.P[j] = j == 2 ? pb_rows_p(PB_ROUTE, R, N, H2, 0, sms)
+                    : pb_rows_p(PB_DUAL, R, N, p.kin[j], p.H[j + 1], sms);
+    p.off_pds[j] = take((size_t)p.P[j] * 2 * N * 4);
+  }
+  p.total = off;
+  return p;
+}
+
+template <int MODE>
+static int pb_rows(const PbRows& a, int P, cudaStream_t st) {
+  const int smem = pb_rows_smem(MODE, a.K1, a.K2).total;
+  const cudaError_t e = cudaFuncSetAttribute(
+      pb_rows_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  pb_rows_kernel<MODE><<<dim3((a.N + PB_BN - 1) / PB_BN, P), PB_THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long long sv_sa_pool_bwd_ws(int R, int C, int H1, int H2, int H3, int sms) {
+  return (long long)pb_plan(R, C, H1, H2, H3, sms).total;
+}
+
+extern "C" int sv_sa_pool_bwd(const float* x, int R, int C, int ns, int need_dx,
+                              const bf16* w1, const float* a1, const float* b1, const bf16* w2,
+                              const float* a2, const float* b2, const bf16* w3,
+                              const float* a3, const float* b3, int H1, int H2, int H3,
+                              int sms, const float* dpool, const int* argin, float* dx,
+                              float* dw, float* ds, void* ws, void* stream) {
+  if (R < 1 || C < 1 || ns < 1 || R % ns || sms < 1) return (int)cudaErrorInvalidValue;
+  const int Hs[3] = {H1, H2, H3};
+  for (int j = 0; j < 3; ++j)
+    if (Hs[j] < 16 || Hs[j] % 16) return (int)cudaErrorInvalidValue;
+  const PbPlan p = pb_plan(R, C, H1, H2, H3, sms);
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  bf16* xb = reinterpret_cast<bf16*>(base + p.off_x);
+  bf16* h[2] = {reinterpret_cast<bf16*>(base + p.off_h[0]),
+                reinterpret_cast<bf16*>(base + p.off_h[1])};
+  bf16* du[3];
+  for (int j = 0; j < 3; ++j) du[j] = reinterpret_cast<bf16*>(base + p.off_du[j]);
+  const bf16* w[3] = {w1, w2, w3};
+  const float* a[3] = {a1, a2, a3};
+  const float* b[3] = {b1, b2, b3};
+  const bf16* in[3] = {xb, h[0], h[1]};
+  int e;
+  pb_cvt_kernel<<<8 * sms, 256, 0, st>>>(x, R, C, p.K1, xb);
+  if ((e = (int)cudaGetLastError())) return e;
+  for (int j = 0; j < 2; ++j) {  // forward: h1, h2
+    PbRows r = {};
+    r.a1 = in[j], r.lda1 = p.kin[j], r.K1 = p.kin[j];
+    r.w1 = w[j], r.ldw1 = Hs[j];
+    r.sa = a[j], r.sb = b[j], r.out = h[j], r.M = R, r.N = Hs[j];
+    if ((e = pb_rows<PB_FWD>(r, pb_rows_p(PB_FWD, R, Hs[j], p.kin[j], 0, sms), st)))
+      return e;
+  }
+  for (int j = 2; j >= 0; --j) {  // du3, du2, du1 with da / db partials
+    PbRows r = {};
+    r.a1 = in[j], r.lda1 = p.kin[j], r.K1 = p.kin[j];
+    r.w1 = w[j], r.ldw1 = Hs[j];
+    r.sa = a[j], r.sb = b[j], r.out = du[j], r.M = R, r.N = Hs[j];
+    r.pds = reinterpret_cast<float*>(base + p.off_pds[j]);
+    if (j == 2) {
+      r.dpool = dpool, r.argin = argin, r.ns = ns;
+      e = pb_rows<PB_ROUTE>(r, p.P[j], st);
+    } else {
+      r.a2 = du[j + 1], r.lda2 = Hs[j + 1], r.K2 = Hs[j + 1];
+      r.w2 = w[j + 1], r.ldw2 = Hs[j + 1];
+      e = pb_rows<PB_DUAL>(r, p.P[j], st);
+    }
+    if (e) return e;
+  }
+  if (need_dx) {
+    PbRows r = {};
+    r.a1 = du[0], r.lda1 = H1, r.K1 = H1;
+    r.w1 = w1, r.ldw1 = H1;
+    r.outf = dx, r.Nreal = C, r.M = R, r.N = p.K1;
+    if ((e = pb_rows<PB_DX>(r, pb_rows_p(PB_DX, R, p.K1, H1, 0, sms), st))) return e;
+  }
+  size_t dwoff = 0, dsoff = 0;
+  for (int j = 0; j < 3; ++j) {
+    const int M = p.kin[j], N = Hs[j];
+    float* pdw = reinterpret_cast<float*>(base + p.off_pdw[j]);
+    pb_dw_kernel<<<dim3((N + PB_BN - 1) / PB_BN, (M + PB_BM - 1) / PB_BM, p.S[j]), PB_THREADS,
+                   0, st>>>(in[j], M, du[j], N, M, N, R, p.chunk[j], pdw);
+    if ((e = (int)cudaGetLastError())) return e;
+    if ((e = st_reduce(pdw, p.S[j], M * N, dw + dwoff, st))) return e;
+    if ((e = st_reduce(reinterpret_cast<float*>(base + p.off_pds[j]), p.P[j], 2 * N,
+                       ds + dsoff, st)))
+      return e;
+    dwoff += (size_t)M * N;
+    dsoff += 2 * (size_t)N;
+  }
+  return 0;
 }

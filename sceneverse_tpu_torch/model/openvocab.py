@@ -1,10 +1,13 @@
 """GPS task model ``OpenVocab`` (port of sceneverse_tpu/model/openvocab.py;
 reference model/openvocab.py:11-126): BERT text tower (utterance, and the
-scene caption as a second, [CLS]-only call when ``split_scene_cap_tower``),
+scene caption as a second call when ``split_scene_cap_tower``, [CLS]-only
+in its final layer under ``SCENEVERSE_CAP_CLS_ONLY``),
 the PointNet++ + spatial vision tower, the unified encoder and the
 configured heads; og3d logits are fused objects . fused [CLS] text."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -15,6 +18,15 @@ from sceneverse_tpu_torch.modules.build import build_module
 from sceneverse_tpu_torch.modules.utils import init_bert_weights
 
 MODEL_REGISTRY = Registry("model")
+
+
+def cap_cls_only_enabled() -> bool:
+    """``SCENEVERSE_CAP_CLS_ONLY`` (default on, read at call time, as the
+    JAX package's ``_lang_cls``): the split caption tower computes only the
+    [CLS] query row in its final layer; off runs the full tower and takes
+    its ``[:, 0]`` (the parity recipe, ``PARITY_KIT.md:19-28``)."""
+    return os.environ.get("SCENEVERSE_CAP_CLS_ONLY", "on").lower() in (
+        "1", "on", "true")
 
 
 def _get_lr(module_cfg, default_lr):
@@ -103,7 +115,7 @@ class OpenVocab(nn.Module):
             if self.split_scene_cap_tower:
                 lang_feats = self.lang_encoder(txt_ids, txt_masks)
                 out["scene_text_embed"] = self.lang_encoder(
-                    sc_ids, sc_masks, cls_only=True)[:, 0]
+                    sc_ids, sc_masks, cls_only=cap_cls_only_enabled())[:, 0]
             else:
                 B, L = txt_ids.shape
                 M = max(L, sc_ids.shape[1])

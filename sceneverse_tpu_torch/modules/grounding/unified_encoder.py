@@ -13,6 +13,7 @@ from sceneverse_tpu_torch.modules.layers.transformers import (
     TransformerEncoderLayer)
 from sceneverse_tpu_torch.modules.vision.pcd_openvocab_encoder import (
     loc_layer)
+from sceneverse_tpu_torch.utils.precision import Embedding
 
 
 @GROUNDING_REGISTRY.register()
@@ -25,7 +26,7 @@ class UnifiedSpatialCrossEncoderV2(nn.Module):
                                     dim_feedforward=dim_feedforward)
             for _ in range(num_layers)])
         self.loc_layers = nn.ModuleList([loc_layer(dim_loc, hidden_size)])
-        self.token_type_embeddings = nn.Embedding(2, hidden_size)
+        self.token_type_embeddings = Embedding(2, hidden_size)
 
     def forward(self, txt_embeds, txt_masks, obj_embeds, obj_locs, obj_masks,
                 **kwargs):

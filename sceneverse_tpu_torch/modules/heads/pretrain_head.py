@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sceneverse_tpu_torch.modules.build import HEADS_REGISTRY
+from sceneverse_tpu_torch.utils.precision import LayerNorm
 
 
 class BertPredictionHeadTransform(nn.Module):
@@ -16,7 +17,7 @@ class BertPredictionHeadTransform(nn.Module):
     def __init__(self, hidden_size: int):
         super().__init__()
         self.dense = nn.Linear(hidden_size, hidden_size)
-        self.LayerNorm = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.LayerNorm = LayerNorm(hidden_size, eps=1e-5)
 
     def forward(self, x):
         return self.LayerNorm(F.gelu(self.dense(x), approximate="none"))

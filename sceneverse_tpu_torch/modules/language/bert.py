@@ -21,6 +21,7 @@ from sceneverse_tpu_torch.ops.attention import flash_enabled, masked_mha
 from sceneverse_tpu_torch.ops.mha import (fused_mha, fused_mha_enabled,
                                           fused_mha_supported)
 from sceneverse_tpu_torch.ops.softmax import softmax_lowp
+from sceneverse_tpu_torch.utils.precision import Embedding, LayerNorm
 
 
 @dataclass
@@ -40,12 +41,12 @@ class BertConfig:
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings,
                                                 cfg.hidden_size)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
+        self.token_type_embeddings = Embedding(cfg.type_vocab_size,
                                                   cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids):
@@ -108,7 +109,7 @@ class BertSelfOutput(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, hidden, residual):

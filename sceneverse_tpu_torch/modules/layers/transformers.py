@@ -23,6 +23,7 @@ from sceneverse_tpu_torch.ops.mha import (LOG1E6, fused_mha,
                                           fused_mha_enabled,
                                           fused_mha_supported)
 from sceneverse_tpu_torch.ops.softmax import softmax_lowp
+from sceneverse_tpu_torch.utils.precision import LayerNorm
 
 
 def _heads(x, n_head):  # (B, T, H*dh) -> (B, H, T, dh)
@@ -92,8 +93,8 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.dropout = Dropout(dropout)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
         self.activation = get_activation_fn(activation)

@@ -19,6 +19,7 @@ from sceneverse_tpu_torch.modules.layers.transformers import (
     TransformerSpatialEncoderLayer)
 from sceneverse_tpu_torch.modules.utils import Dropout
 from sceneverse_tpu_torch.ops.geometry import calc_pairwise_locs
+from sceneverse_tpu_torch.utils.precision import Embedding, LayerNorm
 
 
 def _load_text_features(lang_path: Optional[str], lang_type: str,
@@ -39,7 +40,7 @@ def _load_text_features(lang_path: Optional[str], lang_type: str,
 def loc_layer(dim_loc: int, hidden_size: int) -> nn.Sequential:
     """Linear(dim_loc -> hidden) + LayerNorm(eps 1e-5) (reference :84-87)."""
     return nn.Sequential(nn.Linear(dim_loc, hidden_size),
-                         nn.LayerNorm(hidden_size, eps=1e-5))
+                         LayerNorm(hidden_size, eps=1e-5))
 
 
 @VISION_REGISTRY.register()
@@ -72,8 +73,8 @@ class PointOpenVocabEncoder(nn.Module):
         # built for checkpoint parity; unused by the reference forward
         self.sem_cls_embed_layer = nn.Sequential(
             nn.Linear(hidden_size, hidden_size),
-            nn.LayerNorm(hidden_size, eps=1e-5), nn.Dropout(0.1))
-        self.sem_mask_embeddings = nn.Embedding(1, 768)
+            LayerNorm(hidden_size, eps=1e-5), nn.Dropout(0.1))
+        self.sem_mask_embeddings = Embedding(1, 768)
         self.spatial_encoder = nn.ModuleList([
             TransformerSpatialEncoderLayer(
                 hidden_size, num_attention_heads,

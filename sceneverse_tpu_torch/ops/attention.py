@@ -13,9 +13,16 @@ Two hand-written CUDA kernels (``csrc/flash_attn.cu``) replace them:
     f32, an online f32 softmax over key tiles of ``BK`` keys, the
     unnormalised probabilities rounded to bf16 for the p.v product (f32
     accumulation), o divided by the row sum and rounded to bf16; saves the
-    row sum ``l`` and row max ``m``. Grid (B*H, Lq/64): four warps, each
-    owning 16 query rows; K and V tiles staged in shared memory; the
-    products on tensor cores (``nvcuda::wmma`` bf16 16x16x16 fragments).
+    row sum ``l`` and row max ``m``. Grid (Lq/64, B*H), four warps, each
+    owning 16 query rows whose scores, probabilities, running max and sum
+    and output stay in registers: ``mma.sync`` m16n8k16 bf16 fragments
+    (documented layouts), the q.k^T accumulators repacked in registers as
+    the A operand of p.v, the row max and sum two quad shuffles per row.
+    Q is loaded once; K and V tiles are double-buffered by ``cp.async`` so
+    the next tile's load overlaps the current products (46 KB of shared
+    memory, up to four blocks per SM). The walk stops after the tile that
+    holds the batch row's last valid key: later tiles are all pads and
+    change no bit (alpha = 1, p = 0) of a row with a valid key.
 ``flash_bwd``
     the library's backward from the saved l and m: p = exp(s - m) * (1/l),
     di = sum(o * do) (f32, computed beside the kernels, as the library
@@ -26,10 +33,12 @@ Two hand-written CUDA kernels (``csrc/flash_attn.cu``) replace them:
     dq and d ab. dq, dk and dv are rounded to bf16, as the library returns
     them in q's type.
 
-Bound on the card: at the GPS lengths (L = 50-300, dh = 64) the bf16
-products are small (~0.1 TFLOP per call at L=300, B=32, H=12), so the
-kernels are latency- and shared-memory-bound, not HBM-bound; the design
-keeps every (L, T) score, probability and ds tile out of device memory.
+Bound on the card: at the GPS lengths (L = 50-300, dh = 64) the forward
+moves q, k, v and o once (0.018 ms at L=300, B=32, H=12, at 3.35 TB/s)
+and its bf16 products take half that at the tensor-core rate, so a block's
+fixed latency (loads it cannot hide, at most 5 key tiles) sets its time;
+the design keeps every (L, T) score, probability and ds tile out of device
+memory.
 
 Masking: the library expresses key padding as segment ids (pad keys
 segment 0) and adds ``where(mask, 0, -0.7 * FLT_MAX)`` to the scores; the

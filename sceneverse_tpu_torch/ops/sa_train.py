@@ -30,16 +30,24 @@ operands with f32 accumulation for every product, h = relu(u * a + b) in
 f32, the next layer and the moments read bf16(h), the pool takes the max of
 the f32 (unrounded) h3 and the first slot that attains it.
 
-Design on Hopper. Each block takes row tiles of TM rows (a multiple of the
-pool's ``ns``, so whole centers), recomputes the chain with ``wmma`` bf16
-16x16x16 tensor-core fragments (weights read from device memory / L2, the
-row tile's bf16 activations in shared memory), and accumulates its sums,
-Gram, dW, da and db in a partial slot of its own; a second launch from the
-same source sums the slots in a fixed order. No float atomics: two runs are
+Design on Hopper. ``sa_stats``, ``sa_pool`` and ``sa_stats_bwd``: each
+block takes row tiles of TM rows (a multiple of the pool's ``ns``, so whole
+centers), recomputes the chain with ``wmma`` bf16 16x16x16 tensor-core
+fragments (weights read from device memory / L2, the row tile's bf16
+activations in shared memory), and accumulates its sums, Gram, dW, da and
+db in a partial slot of its own; a second launch from the same source sums
+the slots in a fixed order. ``sa_pool_bwd`` is a chain of tiled
+``mma.sync`` m16n8k16 products over the rows, one pass per layer: the bf16
+activations h1, h2 and row cotangents du3, du2, du1 (the values the twin
+rounds to bf16) go to a workspace the wrapper allocates; each row pass's
+persistent blocks keep their da / db column sums in registers across the
+row tiles they walk, and the dW pass splits the rows into chunks whose
+64 x 64 output tiles stay in registers until one partial write. The ReLU
+mask, the argmax routing of d_pooled and the a / b scaling run on the
+accumulator registers. No float atomics anywhere: two runs are
 bit-identical. Bound: the bf16 products at 989 TFLOP/s (about 2.5 TFLOP per
 training step over the three levels) against the f32 rows read from
-device memory; wgmma, TMA and register-resident weight-gradient sums are
-later work.
+device memory.
 
 Left out: the ``axis_name`` / ``shard_map`` psum of the moments (SyncBN
 over a data-parallel mesh), which waits for the port's DDP. The grouped
@@ -60,10 +68,10 @@ from sceneverse_tpu_torch.ops.sa_forward import _bf16
 
 _MAX_SMEM = 227 * 1024
 _TILE_ROWS = (64, 32, 16)
-_MODES = {"stats": 0, "pool": 1, "stats_bwd": 2, "pool_bwd": 3}
+_MODES = {"stats": 0, "pool": 1, "stats_bwd": 2}
 # device pointers after the sizes, in the order of ``sv_sa_train``
-_OUTS = ("sum", "gram", "pooled", "arg", "dsym", "dS", "dpool", "argin",
-         "dx", "dw", "ds", "part_a", "part_b")
+_OUTS = ("sum", "gram", "pooled", "arg", "dsym", "dS", "dx", "dw", "ds",
+         "part_a", "part_b")
 # row-group quantum of the TPU kernels' accumulators (``_ACC_ROWS``): the
 # shape gate of the fused route
 _ACC_ROWS = 8
@@ -148,6 +156,12 @@ def _lib():
         lib.run_fn = _build.bind(lib, "sv_sa_train",
                                  [I, P, I, I, I, I, I] + [P] * 9 + [I] * 6
                                  + [P] * len(_OUTS) + [P])
+        lib.pool_bwd_ws_fn = _build.bind(lib, "sv_sa_pool_bwd_ws",
+                                         [I, I, I, I, I, I])
+        lib.pool_bwd_ws_fn.restype = ctypes.c_longlong
+        lib.pool_bwd_fn = _build.bind(lib, "sv_sa_pool_bwd",
+                                      [P, I, I, I, I] + [P] * 9
+                                      + [I] * 4 + [P] * 6 + [P])
         lib._bound = True
     return lib
 
@@ -315,11 +329,26 @@ def sa_pool_bwd(x, params, ns, dpooled, arg, need_dx=True):
     _build.require_cuda(arg, "sa_pool_bwd.arg", (torch.int32,), 2)
     if tuple(dpooled.shape) != shape or tuple(arg.shape) != shape:
         raise ValueError(f"sa_pool_bwd: dpooled and arg must be {shape}")
-    plan = tm, blocks, _ = _plan(_lib(), "pool_bwd", x, hs, 3, ns)
-    outs, kin = _bwd_outs(x, hs, 3, tm, blocks, need_dx)
-    outs["dpool"], outs["argin"] = dpooled, arg
-    _launch("pool_bwd", x, ops, hs, 3, ns, plan, outs, need_dx)
-    return _split_grads(outs, kin, hs, 3, x.shape[1])
+    lib = _lib()
+    R, C = x.shape
+    sms = _sm_count(x.device.index or 0)
+    ws = torch.empty(lib.pool_bwd_ws_fn(R, C, *hs, sms), device=x.device,
+                     dtype=torch.uint8)
+    kin = [_ceil16(C)] + hs[:2]
+    outs = {"dw": torch.empty(sum(k * h for k, h in zip(kin, hs)),
+                              device=x.device),
+            "ds": torch.empty(2 * sum(hs), device=x.device)}
+    if need_dx:
+        outs["dx"] = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = lib.pool_bwd_fn(
+        x.data_ptr(), R, C, ns, int(need_dx), *[ptr(t) for t in ops], *hs,
+        sms, dpooled.data_ptr(), arg.data_ptr(), ptr(outs.get("dx")),
+        outs["dw"].data_ptr(), outs["ds"].data_ptr(), ws.data_ptr(),
+        _build.stream_ptr(x))
+    _build.LAUNCHES["sa_pool_bwd"] += 1
+    _build.check(code, "sa_pool_bwd")
+    return _split_grads(outs, kin, hs, 3, C)
 
 
 # ------------------------------------------------------------- autograd ops

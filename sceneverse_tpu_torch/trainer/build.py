@@ -34,8 +34,9 @@ from sceneverse_tpu_torch.utils.logger import MetricsLogger
 
 TRAINER_REGISTRY = Registry("trainer")
 
-_AMP = {"no": None, "fp32": None, "bf16": torch.bfloat16,
-        "bfloat16": torch.bfloat16}
+# the JAX package's map (trainer/build.py:181-186): these values train
+# under a bf16 autocast, every other value in f32
+_BF16_VALUES = ("bf16", "bfloat16", "fp16", "16")
 
 
 def build_dataloader(cfg, split: str):
@@ -96,9 +97,7 @@ class BaseTrainer:
         if cfg.get("resume", False):
             raise NotImplementedError("resume is not ported yet")
         amp = str(cfg.get("mixed_precision", "no")).lower()
-        if amp not in _AMP:
-            raise ValueError(f"mixed_precision={amp!r}: use 'no' or 'bf16'")
-        self.amp_dtype = _AMP[amp]
+        self.amp_dtype = torch.bfloat16 if amp in _BF16_VALUES else None
         self.global_step = 0
         self.exp_tracker = Tracker(cfg)
         self.logger = MetricsLogger(cfg, self.exp_tracker.exp_name)
@@ -152,7 +151,7 @@ class BaseTrainer:
         step = self.global_step if step is None else step
         row = {f"{mode}/{k}": float(v) for k, v in results.items()}
         if mode == "train":
-            ratio = self.optimizer.schedule(max(step - 1, 0))
+            ratio = self.optimizer.schedule(step)
             for i, (_, base_lr) in enumerate(self.optimizer.group_info):
                 row[f"{mode}/lr/group_{i}"] = base_lr * ratio
         self.logger.log(row, step=step)

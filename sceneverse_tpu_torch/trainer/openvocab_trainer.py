@@ -29,16 +29,22 @@ class OpenVocabTrainer(BaseTrainer):
             self.log({k: v for k, v in row.items() if k != "step"})
 
     def _eval_loop(self, split: str):
+        """One evaluator serves every loader of the split; each loader is
+        recorded, logged and reset on its own, ``is_best`` is their OR and
+        the results are merged (JAX ``default_trainer.py:105-129``)."""
         ev = self.evaluator["val"]
         loaders = self.data_loaders[split]
+        is_best, results = False, {}
         for loader in (loaders if isinstance(loaders, list) else [loaders]):
             for batch in loader:
                 batch = to_device(batch, self.device)
                 ev.update({**batch, **self.forward(batch)})
-        is_best, results = ev.record()
-        ev.reset()
-        self.history[split].append(results)
-        self.log(results, mode=split)
+            best_i, res_i = ev.record()
+            ev.reset()
+            is_best = is_best or best_i
+            results.update(res_i)
+            self.history[split].append(res_i)
+            self.log(res_i, mode=split)
         return is_best, results
 
     def eval_step(self, epoch: int) -> bool:

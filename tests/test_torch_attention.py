@@ -224,3 +224,29 @@ def test_layers_route_as_the_jax_package(monkeypatch, training):
         m.train(training)
         assert torch.isfinite(run(m, torch.randn((2, 6, 32)))).all()
     assert calls == {"flash": 0 if training else 2, "fused": 0}
+
+
+def test_flash_twin_skipping_trailing_pad_tiles_is_exact():
+    """The forward kernel stops its walk after the key tile (``BK`` keys)
+    that holds a batch row's last valid key. For every row with a valid
+    key the twin gives the same bits on keys cut there: a tile of pads
+    has alpha = exp(0) = 1 and p = exp(-0.7 * FLT_MAX - m) = 0. Against
+    JAX (interpret mode) the output holds at the tolerance of the
+    forward test above."""
+    q, k, v, _, _, _ = _case(300, seed=5)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    tq, tk, tv = bf(q * 0.125), bf(k), bf(v)
+    valid = 70  # tiles 2-4 of 64 keys are all pad
+    pad = torch.arange(300)[None] >= valid
+    full = tatt.flash_fwd_plain(tq, tk, tv, pad)
+    end = -(-valid // tatt.BK) * tatt.BK
+    cut = tatt.flash_fwd_plain(tq, tk[:, :, :end], tv[:, :, :end],
+                               pad[:, :end])
+    assert all(torch.equal(a, b) for a, b in zip(full, cut))
+    with pltpu.force_tpu_interpret_mode():
+        jo = np.asarray(jax_masked_mha(
+            *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(pad.numpy()),
+            None, sm_scale=0.125))
+    to = tatt.masked_mha(*(torch.from_numpy(x) for x in (q, k, v)), pad,
+                         sm_scale=0.125)
+    assert np.abs(to.numpy() - jo).max() <= BF16_TOL * np.abs(jo).max()

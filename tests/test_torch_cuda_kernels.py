@@ -175,8 +175,14 @@ def _same_twice(fn):
     (2560 * 32 * 32, 32, [6, 64, 64, 128], False),   # SA1
     (2560 * 16 * 32, 32, [131, 128, 128, 256], True),  # SA2
     (2560 * 16, 16, [259, 256, 512, 768], True),     # SA3
+    (2560 * 32 * 32, 32, [6, 64, 64, 128], True),    # the other need_dx
+    (2560 * 16 * 32, 32, [131, 128, 128, 256], False),
+    (2560 * 16, 16, [259, 256, 512, 768], False),
 ])
 def test_sa_train_kernels_match_plain(dev, R, ns, dims, need_dx):
+    """The four ``sa_train`` kernels within ``SA_TRAIN_TOL`` of their twins
+    (dx by ``check_rows``, the argmax by ``check_argmax``), each run twice
+    and bit-identical, one launch counted per call."""
     from chip_smoke import SA_TRAIN_TOL as TOL
     from chip_smoke import check_argmax, check_rows
     from sceneverse_tpu_torch.ops import _build
@@ -209,9 +215,10 @@ def test_sa_train_kernels_match_plain(dev, R, ns, dims, need_dx):
     dx, grads = _same_twice(lambda: st.sa_pool_bwd(
         x, params, ns, dpooled, arg, need_dx))
     wdx, wgrads = st.mlp_pool_bwd_plain(x, params, ns, dpooled, arg)
+    assert (dx is None) != need_dx
     for a, b in zip(grads, wgrads):
         for p, q in zip(a, b):
-            assert _rel(p, q) <= TOL["grads"]
+            assert p.shape == q.shape and _rel(p, q) <= TOL["grads"]
     if need_dx:
         check_rows("sa_pool_bwd dx", f"R={R}", dx, wdx)
     torch.cuda.synchronize()
@@ -330,22 +337,31 @@ def test_sa_dense_pool_matches_plain(dev, G):
 
 
 @pytest.mark.parametrize("use_ab", [False, True])
-@pytest.mark.parametrize("Lq,Lk", [(50, 50), (130, 130), (300, 300),
-                                   (40, 72), (1, 9)])
-def test_flash_kernels_match_plain(dev, Lq, Lk, use_ab):
+@pytest.mark.parametrize("Lq,Lk,valid", [
+    (50, 50, None), (130, 130, None), (300, 300, None), (40, 72, None),
+    (1, 9, None),
+    (300, 300, (0, 1, 64, 65)),  # whole trailing key tiles of pad
+])
+def test_flash_kernels_match_plain(dev, Lq, Lk, valid, use_ab):
     """bf16 outputs within 2e-2 of max|plain| (an element on a bf16
-    rounding boundary may land one step apart); two runs bit-identical."""
+    rounding boundary may land one step apart); two runs bit-identical.
+    With ``valid`` (each batch row's count of leading valid keys) the
+    forward equals, bit for bit, its own output on keys cut after the tile
+    of a row's last valid key, and the row with none gets the mean of v."""
     from sceneverse_tpu_torch.ops import _build
     from sceneverse_tpu_torch.ops import attention as fa
 
     g = torch.Generator().manual_seed(6)
-    B, H, dh, bf = 3, 12, 64, torch.bfloat16
+    B, H, dh, bf = 3 if valid is None else len(valid), 12, 64, torch.bfloat16
     q = (torch.randn((B, H, Lq, dh), generator=g) * 0.125).to(dev, bf)
     k, v = (torch.randn((B, H, Lk, dh), generator=g).to(dev, bf)
             for _ in range(2))
     do = torch.randn((B, H, Lq, dh), generator=g).to(dev, bf)
-    pad = torch.rand((B, Lk), generator=g) > 0.7
-    pad[:, 0] = False
+    if valid is None:
+        pad = torch.rand((B, Lk), generator=g) > 0.7
+        pad[:, 0] = False
+    else:
+        pad = torch.arange(Lk)[None] >= torch.tensor(valid)[:, None]
     pad = pad.to(dev)
     ab = (torch.randn((B, H, Lq, Lk), generator=g).to(dev) if use_ab
           else None)
@@ -354,9 +370,21 @@ def test_flash_kernels_match_plain(dev, Lq, Lk, use_ab):
     assert all(torch.equal(a, b) for a, b in zip(got,
                                                   fa.flash_fwd(q, k, v, pad,
                                                                ab)))
+    assert _build.LAUNCHES["flash_fwd"] == before.get("flash_fwd", 0) + 2
     want = fa.flash_fwd_plain(q, k, v, pad, ab)
     for a, b in zip(got, want):
         assert _rel(a, b) <= 2e-2
+    if valid is not None:
+        mean_v = v[0].float().mean(1, keepdim=True)
+        assert (got[0][0].float() - mean_v).abs().max() <= 2.0 ** -7
+        for b in range(1, B):
+            end = -(-valid[b] // fa.BK) * fa.BK
+            cut = fa.flash_fwd(
+                q[b:b + 1], k[b:b + 1, :, :end].contiguous(),
+                v[b:b + 1, :, :end].contiguous(),
+                pad[b:b + 1, :end].contiguous(),
+                None if ab is None else ab[b:b + 1, ..., :end].contiguous())
+            assert all(torch.equal(a[b:b + 1], c) for a, c in zip(got, cut))
     bargs = (q, k, v, pad, ab, *want, do)
     got = fa.flash_bwd(*bargs)
     assert all(torch.equal(a, b) for a, b in zip(got, fa.flash_bwd(*bargs))
@@ -367,7 +395,6 @@ def test_flash_kernels_match_plain(dev, Lq, Lk, use_ab):
         assert (a is None) == (b is None)
         if b is not None:
             assert b.abs().max() > 0 and _rel(a, b) <= 2e-2
-    assert _build.LAUNCHES["flash_fwd"] == before.get("flash_fwd", 0) + 2
     assert _build.LAUNCHES["flash_bwd"] == before.get("flash_bwd", 0) + 2
 
 
