@@ -44,8 +44,8 @@ _ELEMENTWISE = ("elementwise", "reduce_kernel", "norm", "batch_norm")
 _HOST_WAITS = ("Synchronize", "cudaMalloc", "cudaFree", "cudaMemcpy")
 
 
-_SA_TRAIN = ("st_fwd_kernel", "st_bwd_kernel", "st_reduce_kernel",
-             "pb_rows_kernel", "pb_dw_kernel", "pb_cvt_kernel")
+_SA_TRAIN = ("st_fwd_kernel", "st_reduce_kernel", "pb_rows_kernel",
+             "pb_dw_kernel", "pb_cvt_kernel")
 _PORT = ("mha_fwd", "mha_bwd", "sa_group", "sa_dense", "ball_group", "fps",
          "fa_fwd", "fa_dkv", "fa_dq")
 

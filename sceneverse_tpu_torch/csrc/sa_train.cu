@@ -1,11 +1,11 @@
 // Trainable fused set abstraction for Hopper (sm_90a): 3 x (1x1 conv ->
 // train-mode BatchNorm folded to u * a + b -> ReLU) + max-pool over grouped
-// rows, forward and backward, with the activations kept on chip.
+// rows, forward and backward.
 //
 // Replaces the four Pallas kernels of sceneverse_tpu/ops/pallas/sa_train.py:
 //   sv_sa_train mode 0  sa_stats      _stats_kernel      (:103): sum and Gram of bf16(h_upto)
 //   sv_sa_train mode 1  sa_pool       _pool_kernel       (:210): max / first argmax of f32 h3
-//   sv_sa_train mode 2  sa_stats_bwd  _stats_bwd_kernel  (:184): dh = dS + h (dG + dG^T), back
+//   sv_sa_stats_bwd     sa_stats_bwd  _stats_bwd_kernel  (:184): dh = dS + h (dG + dG^T), back
 //   sv_sa_pool_bwd      sa_pool_bwd   _pool_bwd_kernel   (:232): d_pooled to the argmax slot, back
 //
 // Every product has bf16 operands and f32 accumulation on the tensor cores;
@@ -14,17 +14,19 @@
 // ops/sa_train.py do. No float atomics: partial sums are reduced in a fixed
 // order (st_reduce_kernel), so two runs are bit-identical.
 //
-// Modes 0-2 (st_fwd_kernel, st_bwd_kernel, nvcuda::wmma 16x16x16): a block
+// The forwards, modes 0-1 (st_fwd_kernel, nvcuda::wmma 16x16x16): a block
 // walks row tiles of TM rows (whole centers for the pool): the tile's rows
-// go to shared memory as bf16, the chain is recomputed there, the weights
-// are read from device memory (L2); sums, Gram, dW, da and db go to a
-// partial slot owned by the block.
+// go to shared memory as bf16, the chain is recomputed there with the
+// activations kept on chip, the weights are read from device memory (L2);
+// sums and Gram go to a partial slot owned by the block.
 //
-// sa_pool_bwd has its own kernels (pb_*, the note at their section below):
-// a chain of tiled mma.sync GEMMs over the rows with the bf16 activations
-// and row cotangents in a workspace, the weight-gradient and column sums in
-// registers. Bound: the bf16 products at the GPS widths at 989 TFLOP/s.
-// Times and bounds: chip_smoke.py's sa_train phase, PERF.md row 10.
+// The backwards share one chain of kernels (pb_*, the note at their section
+// below): tiled mma.sync GEMMs over the rows, one pass per layer, with the
+// bf16 activations and row cotangents in a workspace and the weight-gradient
+// and column sums in registers. They differ only in the top pass: the
+// argmax routing of d_pooled (sa_pool_bwd) or the head d = dS + h dsym
+// (sa_stats_bwd). Bound: the bf16 products at the GPS widths at 989 TFLOP/s.
+// Times and bounds: chip_smoke.py's sa_train phase, PERF.md rows 7-10.
 #include "common.cuh"
 #include <mma.h>
 
@@ -37,13 +39,12 @@ constexpr int ST_WARPS = 8;
 constexpr int ST_THREADS = ST_WARPS * 32;
 constexpr int ST_PAD = 8;  // bf16 elements of padding per shared-memory row
 
-// sv_sa_train modes; sa_pool_bwd has its own entry point, sv_sa_pool_bwd
-enum { M_STATS = 0, M_POOL = 1, M_STATS_BWD = 2 };
+// sv_sa_train modes; the backwards have their own entry points
+enum { M_STATS = 0, M_POOL = 1 };
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // one layer: W (k, h) row-major bf16, k the (padded) input width
@@ -56,31 +57,23 @@ struct StLayer {
 
 struct StArgs {
   const float* x;  // grouped rows, (R, C) row-major f32
-  int mode, R, C, K1, upto, ns, need_dx, TM, nl;  // nl: layers of the chain
+  int mode, R, C, K1, upto, ns, TM, nl;  // nl: layers of the chain
   StLayer L[3];
-  float* psum;            // stats: [P][TM/16][H] row-group sums
-  float* pgram;           // stats: [P][H][H]
-  float* pooled;          // pool: [R/ns][H3]
-  int* arg;               // pool: [R/ns][H3] slot
-  const bf16* dsym;       // stats bwd: bf16(dG + dG^T) [H][H]
-  const float* dS;        // stats bwd: [H]
-  float* dx;              // bwd: [R][C] or null
-  float* pdw;             // bwd: [P][dwlen] (dW1 | dW2 | dW3)
-  float* pds;             // bwd: [P][TM/16][dslen] (da1 db1 | da2 db2 | ...)
-  int dwlen, dslen;
+  float* psum;    // stats: [P][TM/16][H] row-group sums
+  float* pgram;   // stats: [P][H][H]
+  float* pooled;  // pool: [R/ns][H3]
+  int* arg;       // pool: [R/ns][H3] slot
 };
 
 struct StSmem {
-  int x, h[3], du[2], scr, pmax, parg, total;
+  int x, h[3], scr, pmax, parg, total;
 };
 
 __host__ __device__ inline int st_align(int b) { return (b + 127) & ~127; }
 
 // Shared-memory plan, the same on host and device (byte offsets).
 __host__ __device__ inline StSmem st_smem(int mode, int K1, int upto, const int* H, int TM) {
-  const bool pool = mode == M_POOL;
-  const int nl = pool ? 3 : upto;
-  const int nh = pool ? 2 : upto;  // layers whose bf16 h stays in shared memory
+  const int nh = mode == M_POOL ? 2 : upto;  // layers whose bf16 h stays in shared memory
   StSmem s;
   int off = 0;
   s.x = off;
@@ -88,12 +81,6 @@ __host__ __device__ inline StSmem st_smem(int mode, int K1, int upto, const int*
   for (int j = 0; j < 3; ++j) {
     s.h[j] = off;
     if (j < nh) off += st_align(TM * (H[j] + ST_PAD) * 2);
-  }
-  int hmax = 0;
-  for (int j = 0; j < nl; ++j) hmax = H[j] > hmax ? H[j] : hmax;
-  for (int i = 0; i < 2; ++i) {
-    s.du[i] = off;
-    if (mode == M_STATS_BWD) off += st_align(TM * (hmax + ST_PAD) * 2);
   }
   s.scr = off;
   off += st_align(ST_WARPS * 512 * 4);
@@ -115,18 +102,6 @@ __device__ __forceinline__ void st_mm(FragC& acc, const bf16* a, int lda, const 
   for (int k = 0; k < K; k += 16) {
     wmma::load_matrix_sync(fa, a + k, lda);
     wmma::load_matrix_sync(fb, b + (size_t)k * ldb, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
-
-// acc += a[16 x K] @ W^T, W row-major with rows n..n+15 at wt (ld ldw)
-__device__ __forceinline__ void st_mm_t(FragC& acc, const bf16* a, int lda, const bf16* wt,
-                                        int ldw, int K) {
-  FragA fa;
-  FragBT fb;
-  for (int k = 0; k < K; k += 16) {
-    wmma::load_matrix_sync(fa, a + k, lda);
-    wmma::load_matrix_sync(fb, wt + k, ldw);
     wmma::mma_sync(acc, fa, fb, acc);
   }
 }
@@ -282,124 +257,6 @@ __global__ void __launch_bounds__(ST_THREADS) st_fwd_kernel(StArgs A) {
   }
 }
 
-// mode 2: recompute the chain, then back through layers nl..1
-__global__ void __launch_bounds__(ST_THREADS) st_bwd_kernel(StArgs A) {
-  extern __shared__ __align__(128) unsigned char st_sm[];
-  const int H[3] = {A.L[0].h, A.L[1].h, A.L[2].h};
-  const StSmem S = st_smem(A.mode, A.K1, A.upto, H, A.TM);
-  bf16* xs = reinterpret_cast<bf16*>(st_sm + S.x);
-  bf16* du[2] = {reinterpret_cast<bf16*>(st_sm + S.du[0]),
-                 reinterpret_cast<bf16*>(st_sm + S.du[1])};
-  float* scr = reinterpret_cast<float*>(st_sm + S.scr);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nl = A.nl;
-  int hmax = 0;
-  for (int j = 0; j < nl; ++j) hmax = max(hmax, H[j]);
-  const int ldd = hmax + ST_PAD;
-  const int ntiles = (A.R + A.TM - 1) / A.TM, g16 = A.TM / 16;
-  float* ws0 = scr + warp * 512;
-  float* ws1 = ws0 + 256;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const bool first = t == (int)blockIdx.x;
-    const int r0 = t * A.TM;
-    __syncthreads();
-    st_load_x(A, r0, xs);
-    __syncthreads();
-    const bf16* in = xs;
-    int ldin = A.K1 + ST_PAD;
-    for (int j = 0; j < nl; ++j) {
-      bf16* out = reinterpret_cast<bf16*>(st_sm + S.h[j]);
-      st_fwd_layer(A, A.L[j], in, ldin, out, H[j] + ST_PAD, scr, EPI_STORE, r0, nullptr,
-                   first, nullptr, nullptr);
-      __syncthreads();
-      in = out;
-      ldin = H[j] + ST_PAD;
-    }
-    int cur = 0;
-    for (int j = nl - 1; j >= 0; --j) {
-      const StLayer& L = A.L[j];
-      const bf16* src = j ? reinterpret_cast<const bf16*>(st_sm + S.h[j - 1]) : xs;
-      const int lds = j ? H[j - 1] + ST_PAD : A.K1 + ST_PAD;
-      bf16* dout = du[cur];
-      const bf16* dnext = du[cur ^ 1];
-      int dwoff = 0, dsoff = 0;
-      for (int i = 0; i < j; ++i) {
-        dwoff += A.L[i].k * A.L[i].h;
-        dsoff += 2 * A.L[i].h;
-      }
-      float* dsb = A.pds + (size_t)blockIdx.x * g16 * A.dslen + dsoff;
-      const int nc = L.h / 16;
-      for (int tile = warp; tile < g16 * nc; tile += ST_WARPS) {
-        const int r = tile / nc, c = tile - r * nc;
-        FragC acc_u, acc_d;
-        wmma::fill_fragment(acc_u, 0.f);
-        wmma::fill_fragment(acc_d, 0.f);
-        st_mm(acc_u, src + r * 16 * lds, lds, L.w + c * 16, L.h, L.k);
-        if (j < nl - 1) {  // d = du_{j+1} @ W_{j+1}^T
-          const StLayer& N = A.L[j + 1];
-          st_mm_t(acc_d, dnext + r * 16 * ldd, ldd, N.w + (size_t)c * 16 * N.h, N.h, N.h);
-        } else {  // the bf16(h) @ bf16(dG + dG^T) term
-          const bf16* hl = reinterpret_cast<const bf16*>(st_sm + S.h[j]);
-          st_mm(acc_d, hl + r * 16 * (L.h + ST_PAD), L.h + ST_PAD, A.dsym + c * 16, L.h, L.h);
-        }
-        wmma::store_matrix_sync(ws0, acc_u, 16, wmma::mem_row_major);
-        wmma::store_matrix_sync(ws1, acc_d, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int rr = e >> 4, col = c * 16 + (e & 15), row = r0 + r * 16 + rr;
-          float d = ws1[e];
-          if (j == nl - 1) d = A.dS[col] + d;
-          if (row >= A.R) d = 0.f;
-          const float u = ws0[e];
-          const float dz = st_affine(u, L.a[col], L.b[col]) > 0.f ? d : 0.f;
-          dout[(r * 16 + rr) * ldd + col] = __float2bfloat16_rn(__fmul_rn(dz, L.a[col]));
-          ws0[e] = __fmul_rn(dz, u);
-          ws1[e] = dz;
-        }
-        __syncwarp();
-        {  // lanes 0-15: da of column lane; 16-31: db of column lane - 16
-          const float* v = lane < 16 ? ws0 : ws1;
-          const int cl = lane & 15;
-          float s = 0.f;
-          for (int i = 0; i < 16; ++i) s += v[i * 16 + cl];
-          float* d = dsb + (size_t)r * A.dslen + (lane < 16 ? 0 : L.h) + c * 16 + cl;
-          *d = first ? s : *d + s;
-        }
-        __syncwarp();
-      }
-      __syncthreads();
-      // dW_j += bf16(in_j)^T bf16(du_j) over the tile's rows
-      float* dwb = A.pdw + (size_t)blockIdx.x * A.dwlen + dwoff;
-      const int ni = L.k / 16;
-      for (int tt = warp; tt < ni * nc; tt += ST_WARPS) {
-        const int i = tt / nc, jj = tt - i * nc;
-        st_acc_tile(dwb + i * 16 * L.h + jj * 16, L.h, first, src + i * 16, lds, dout + jj * 16,
-                    ldd, A.TM);
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
-    if (A.need_dx) {  // dx = bf16(du_1) @ bf16(W_1)^T, the first C columns
-      const bf16* d1 = du[cur ^ 1];
-      const StLayer& L = A.L[0];
-      const int nc = A.K1 / 16;
-      for (int tile = warp; tile < g16 * nc; tile += ST_WARPS) {
-        const int r = tile / nc, c = tile - r * nc;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        st_mm_t(acc, d1 + r * 16 * ldd, ldd, L.w + (size_t)c * 16 * L.h, L.h, L.h);
-        wmma::store_matrix_sync(ws0, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int row = r0 + r * 16 + (e >> 4), col = c * 16 + (e & 15);
-          if (row < A.R && col < A.C) A.dx[(size_t)row * A.C + col] = ws0[e];
-        }
-        __syncwarp();
-      }
-    }
-  }
-}
-
 // out[k] = sum over q of part[q][k], q in a fixed order: thread row ty sums
 // q = ty, ty + 8, ...; the 8 row sums are added in order.
 __global__ void __launch_bounds__(256) st_reduce_kernel(const float* __restrict__ part, int Q,
@@ -425,19 +282,18 @@ static int st_reduce(const float* part, int Q, int L, float* out, cudaStream_t s
 }
 
 extern "C" int sv_sa_train_smem(int mode, int C, int upto, int H1, int H2, int H3, int TM) {
-  if (mode < M_STATS || mode > M_STATS_BWD) return -1;
+  if (mode != M_STATS && mode != M_POOL) return -1;
   const int H[3] = {H1, H2, H3};
   return st_smem(mode, (C + 15) / 16 * 16, upto, H, TM).total;
 }
 
 extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int ns,
-                           int need_dx, const bf16* w1, const float* a1, const float* b1,
-                           const bf16* w2, const float* a2, const float* b2, const bf16* w3,
-                           const float* a3, const float* b3, int H1, int H2, int H3, int TM,
-                           int P, int smem, float* sum, float* gram, float* pooled, int* arg,
-                           const bf16* dsym, const float* dS, float* dx, float* dw,
-                           float* ds, float* part_a, float* part_b, void* stream) {
-  if (mode < M_STATS || mode > M_STATS_BWD) return (int)cudaErrorInvalidValue;
+                           const bf16* w1, const float* a1, const float* b1, const bf16* w2,
+                           const float* a2, const float* b2, const bf16* w3, const float* a3,
+                           const float* b3, int H1, int H2, int H3, int TM, int P, int smem,
+                           float* sum, float* gram, float* pooled, int* arg, float* part_a,
+                           float* part_b, void* stream) {
+  if (mode != M_STATS && mode != M_POOL) return (int)cudaErrorInvalidValue;
   StArgs A = {};
   A.mode = mode;
   A.x = x;
@@ -446,7 +302,6 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
   A.K1 = (C + 15) / 16 * 16;
   A.upto = upto;
   A.ns = ns;
-  A.need_dx = need_dx;
   A.TM = TM;
   A.nl = mode == M_POOL ? 3 : upto;
   const bf16* w[3] = {w1, w2, w3};
@@ -458,47 +313,24 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
     A.L[j] = StLayer{w[j], a[j], b[j], kin, H[j]};
     kin = H[j];
   }
+  A.psum = part_a;
+  A.pgram = part_b;
+  A.pooled = pooled;
+  A.arg = arg;
   cudaStream_t st = (cudaStream_t)stream;
-  const int g16 = TM / 16;
-  int e;
-  if (mode == M_STATS || mode == M_POOL) {
-    A.psum = part_a;
-    A.pgram = part_b;
-    A.pooled = pooled;
-    A.arg = arg;
-    e = (int)cudaFuncSetAttribute(st_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem);
-    if (e) return e;
-    st_fwd_kernel<<<P, ST_THREADS, smem, st>>>(A);
-    if ((e = (int)cudaGetLastError())) return e;
-    if (mode == M_STATS) {
-      const int Hl = H[upto - 1];
-      if ((e = st_reduce(part_a, P * g16, Hl, sum, st))) return e;
-      return st_reduce(part_b, P, Hl * Hl, gram, st);
-    }
-    return 0;
-  }
-  A.dsym = dsym;
-  A.dS = dS;
-  A.dx = dx;
-  A.pdw = part_a;
-  A.pds = part_b;
-  for (int j = 0; j < A.nl; ++j) {
-    A.dwlen += A.L[j].k * A.L[j].h;
-    A.dslen += 2 * A.L[j].h;
-  }
-  e = (int)cudaFuncSetAttribute(st_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem);
+  int e = (int)cudaFuncSetAttribute(st_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    smem);
   if (e) return e;
-  st_bwd_kernel<<<P, ST_THREADS, smem, st>>>(A);
-  if ((e = (int)cudaGetLastError())) return e;
-  if ((e = st_reduce(part_a, P, A.dwlen, dw, st))) return e;
-  return st_reduce(part_b, P * g16, A.dslen, ds, st);
+  st_fwd_kernel<<<P, ST_THREADS, smem, st>>>(A);
+  if ((e = (int)cudaGetLastError()) || mode == M_POOL) return e;
+  const int Hl = H[upto - 1];
+  if ((e = st_reduce(part_a, P * (TM / 16), Hl, sum, st))) return e;
+  return st_reduce(part_b, P, Hl * Hl, gram, st);
 }
 
 // ===========================================================================
-// sa_pool_bwd (sv_sa_pool_bwd): a chain of tiled tensor-core GEMMs over
-// the rows.
+// The backwards, sa_pool_bwd (sv_sa_pool_bwd) and sa_stats_bwd
+// (sv_sa_stats_bwd): a chain of tiled tensor-core GEMMs over the rows.
 //
 // Split: one pass per layer, with the bf16 activations and row cotangents
 // (exactly the values the twin rounds to bf16) kept in a device workspace.
@@ -506,14 +338,19 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
 // column of du_{j+1}; a block that kept all three layers' dW in registers
 // would need 264 KB (SA2) to 1.6 MB (SA3). So each pass is a plain tiled
 // product whose block owns one output tile and keeps its sums in registers
-// for every row it walks:
+// for every row it walks. For a chain of nl layers (top layer t = nl):
 //   cvt    xb = bf16(x), zero-padded to K1 columns
-//   FWD    h1 = bf16(relu(xb W1 * a1 + b1)), h2 likewise
-//   ROUTE  u3 = h2 W3, d3 = d_pooled at the saved argmax slot, else 0;
-//          du3 = bf16(dz a3), da3 += dz u3, db3 += dz  (dz = d3 where
-//          u3 a3 + b3 > 0)
-//   DUAL   u2 = h1 W2 and d2 = du3 W3^T in one block; du2, da2, db2; then
-//          layer 1 from xb W1 and du2 W2^T
+//   FWD    h1 = bf16(relu(xb W1 * a1 + b1)), h2 likewise, up to h_{t-1}
+//          (the route) or h_t (the head)
+//   top    ROUTE (sa_pool_bwd): u_t = h_{t-1} W_t, d_t = d_pooled at the
+//          saved argmax slot, else 0;
+//          HEAD (sa_stats_bwd): u_t = h_{t-1} W_t and d_t = dS + h_t dsym
+//          (dsym = bf16(dG + dG^T), symmetric) in one block, the dual pass
+//          with dS added to the f32 d of rows < R;
+//          then du_t = bf16(dz a_t), da_t += dz u_t, db_t += dz (dz = d_t
+//          where u_t a_t + b_t > 0)
+//   DUAL   u_j = in_j W_j and d_j = du_{j+1} W_{j+1}^T in one block; du_j,
+//          da_j, db_j; for j = t - 1 .. 1
 //   DX     dx = du1 W1^T, the first C columns (when need_dx)
 //   DW     dW_j = in_j^T du_j, split over row chunks; each block walks its
 //          chunk with the 64 x 64 tile's sums in registers and writes its
@@ -526,14 +363,14 @@ extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int
 // columns into shared memory once (where they are at most 256 deep; deeper
 // ones stream beside A), then walks its 64-row tiles as one stream of A
 // slices through a 3-slot cp.async ring that runs across tile boundaries;
-// a and b of its columns and, for the routing, the tile's argmax slots and
-// d_pooled (prefetched with the tile's first slice) sit in shared memory;
-// the ReLU mask, the routing and the a / b scaling run on the accumulator
-// registers; the output tile leaves through shared memory in 16-byte rows;
-// da / db column sums stay in registers until the block's one partial
-// write. The dW pass (pb_dw_kernel) walks a row chunk per block through a
-// 2-slot ring (20 KB static). Shared memory per row pass at SA2: 52-88 KB
-// (2-4 blocks per SM). ptxas: pb_rows_kernel 100-128 registers at
+// a and b (and dS) of its columns and, for the routing, the tile's argmax
+// slots and d_pooled (prefetched with the tile's first slice) sit in shared
+// memory; the ReLU mask, the routing and the a / b scaling run on the
+// accumulator registers; the output tile leaves through shared memory in
+// 16-byte rows; da / db column sums stay in registers until the block's one
+// partial write. The dW pass (pb_dw_kernel) walks a row chunk per block
+// through a 2-slot ring (20 KB static). Shared memory per row pass at SA2:
+// 52-88 KB (2-4 blocks per SM). ptxas: pb_rows_kernel 100-128 registers at
 // __launch_bounds__(128, 4), the dual pass spilling 140 B; pb_dw_kernel 105.
 // The workspace traffic (about 2.4 GB written at SA2) costs less than
 // recomputing the chain once per column slice.
@@ -544,7 +381,12 @@ constexpr int PB_LDW = PB_BM + 8;        // bf16 stride of a [32][64] tile
 constexpr int PB_TILE = PB_BM * PB_LDK;  // bf16 per staged tile (>= 32 * 72)
 constexpr int PB_MIN_BLOCKS = 4;         // blocks per SM asked of ptxas
 
-enum { PB_FWD = 0, PB_ROUTE = 1, PB_DUAL = 2, PB_DX = 3 };
+enum { PB_FWD = 0, PB_ROUTE = 1, PB_DUAL = 2, PB_DX = 3, PB_HEAD = 4 };
+
+// the passes with a second product, d = a2 @ w2^T
+__host__ __device__ constexpr bool pb_dual(int mode) {
+  return mode == PB_DUAL || mode == PB_HEAD;
+}
 
 // an [NR][NC] tile at (r0, c0) of a row-major bf16 matrix (ld) into shared
 // memory (stride NC + 8); zero outside rows < rlim, cols < clim
@@ -642,11 +484,12 @@ struct PbRows {
   const bf16* a1;  // u = a1 @ w1: a1 [M][K1], w1 [K1][N] ([N][K1] in PB_DX)
   const bf16* w1;
   int lda1, ldw1, K1;
-  const bf16* a2;  // PB_DUAL: d = a2 @ w2^T, a2 [M][K2], w2 [N][K2]
+  const bf16* a2;  // PB_DUAL, PB_HEAD: d = a2 @ w2^T, a2 [M][K2], w2 [N][K2]
   const bf16* w2;
   int lda2, ldw2, K2;
   const float* sa;  // scale and shift (N)
   const float* sb;
+  const float* dS;  // PB_HEAD: added to d (N)
   const float* dpool;  // PB_ROUTE: [M / ns][N]
   const int* argin;
   int ns;
@@ -666,9 +509,10 @@ constexpr int PB_ATILE = PB_BM * PB_LDK;    // bf16 of one staged [64][32] A sli
 // Dynamic shared memory of a row pass (bytes, 128-aligned pieces): the
 // block's weight slices, resident for the whole pass where their depth is
 // at most PB_KRES (w1: [K1][64] k-major, or [64][K1] in PB_DX; w2:
-// [64][K2]) and otherwise streamed beside A; the ring of PB_NS slots (an A
-// slice, and a weight slice where one is streamed); the staged output tile;
-// in PB_ROUTE three tiles' argmax slots and d_pooled.
+// [64][K2] in the dual passes) and otherwise streamed beside A; the ring
+// of PB_NS slots (an A slice, and a weight slice where one is streamed);
+// the staged output tile; in PB_ROUTE three tiles' argmax slots and
+// d_pooled.
 constexpr int PB_KRES = 256;
 struct PbRowsSmem {
   int w1, w2, ring, slot, out, route, total;
@@ -682,13 +526,13 @@ __host__ __device__ inline PbRowsSmem pb_rows_smem(int mode, int K1, int K2) {
   K1 = pb_kpad(K1);  // whole 32-deep slices, zero past K
   K2 = pb_kpad(K2);
   s.res1 = K1 <= PB_KRES;
-  s.res2 = mode == PB_DUAL && K2 <= PB_KRES;
+  s.res2 = pb_dual(mode) && K2 <= PB_KRES;
   s.w1 = off;
   if (s.res1) off += st_align((mode == PB_DX ? PB_BN * (K1 + 8) : K1 * (PB_BN + 8)) * 2);
   s.w2 = off;
   if (s.res2) off += st_align(PB_BN * (K2 + 8) * 2);
   s.ring = off;
-  s.slot = PB_ATILE + (!s.res1 || (mode == PB_DUAL && !s.res2) ? PB_TILE : 0);
+  s.slot = PB_ATILE + (!s.res1 || (pb_dual(mode) && !s.res2) ? PB_TILE : 0);
   off += PB_NS * s.slot * 2;
   s.out = off;
   off += st_align(PB_BM * PB_LDF * 4);
@@ -714,13 +558,14 @@ __device__ __forceinline__ void pb_load_rt(bf16* dst, const bf16* src, int ld, i
 // The row passes. The block's weight slices go to shared memory once; the
 // block then walks the 64-row tiles blockIdx.y, + gridDim.y, ... of its 64
 // output columns as one stream of 32-deep A slices (both products' slices
-// in PB_DUAL), PB_NS - 1 slices in flight ahead of the one multiplied,
-// across tile boundaries, so a tile's epilogue overlaps the next tile's
-// loads.
+// in the dual passes), PB_NS - 1 slices in flight ahead of the one
+// multiplied, across tile boundaries, so a tile's epilogue overlaps the
+// next tile's loads.
 template <int MODE>
 __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRows P) {
   extern __shared__ __align__(128) unsigned char pb_dyn[];
   __shared__ float s_a[PB_BN], s_b[PB_BN], red[2][2][PB_BN];
+  __shared__ float s_ds[MODE == PB_HEAD ? PB_BN : 1];
   const PbRowsSmem L = pb_rows_smem(MODE, P.K1, P.K2);
   bf16* w1s = reinterpret_cast<bf16*>(pb_dyn + L.w1);
   bf16* w2s = reinterpret_cast<bf16*>(pb_dyn + L.w2);
@@ -734,12 +579,14 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
   const int n0 = blockIdx.x * PB_BN, M = P.M, N = P.N;
   const int K1p = pb_kpad(P.K1), K2p = pb_kpad(P.K2);
   const int ldw1 = MODE == PB_DX ? K1p + 8 : PB_BN + 8, ldw2 = K2p + 8;
-  constexpr bool BWD = MODE == PB_ROUTE || MODE == PB_DUAL;
+  constexpr bool DUAL = pb_dual(MODE);
+  constexpr bool BWD = MODE == PB_ROUTE || DUAL;
   if (MODE != PB_DX)
     for (int i = threadIdx.x; i < PB_BN; i += PB_THREADS) {
       const int c = n0 + i;
       s_a[i] = c < N ? P.sa[c] : 0.f;
       s_b[i] = c < N ? P.sb[c] : 0.f;
+      if (MODE == PB_HEAD) s_ds[i] = c < N ? P.dS[c] : 0.f;
     }  // read after the stream's first barrier
   // the weight slices, in the first commit group
   if (L.res1) {
@@ -765,7 +612,7 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
   const int nM = (M + PB_BM - 1) / PB_BM;
   const int ntile = (int)blockIdx.y < nM ? (nM - 1 - (int)blockIdx.y) / (int)gridDim.y + 1 : 0;
   const int n1 = (P.K1 + PB_BK - 1) / PB_BK;
-  const int spt = n1 + (MODE == PB_DUAL ? (P.K2 + PB_BK - 1) / PB_BK : 0);
+  const int spt = n1 + (DUAL ? (P.K2 + PB_BK - 1) / PB_BK : 0);
   const int total = ntile * spt;
   auto fetch = [&](int s) {  // A slice s of the stream into its ring slot
     const int i = s / spt, j = s - i * spt;
@@ -862,6 +709,7 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
                   d = ga[q] == slot[mi][r] ? gd[q] : 0.f;
                 } else {
                   d = accd[mi][ni][r * 2 + e];
+                  if (MODE == PB_HEAD) d = __fadd_rn(s_ds[cl + e], d);
                 }
               }
               const float dz = st_affine(u, s_a[cl + e], s_b[cl + e]) > 0.f ? d : 0.f;
@@ -971,12 +819,6 @@ __global__ void pb_cvt_kernel(const float* __restrict__ x, int R, int C, int K1,
       xb[(size_t)r * K1 + c] = __float2bfloat16_rn(c < C ? x[(size_t)r * C + c] : 0.f);
 }
 
-// Launch plan, the same for the workspace query and the launch.
-struct PbPlan {
-  int K1, H[3], kin[3], P[3], S[3], chunk[3];
-  size_t off_x, off_h[2], off_du[3], off_pdw[3], off_pds[3], total;
-};
-
 // blocks along the rows: one wave of persistent blocks at the pass's
 // occupancy (shared memory bound, at most PB_MIN_BLOCKS per SM)
 static int pb_rows_p(int mode, int M, int N, int K1, int K2, int sms) {
@@ -986,11 +828,23 @@ static int pb_rows_p(int mode, int M, int N, int K1, int K2, int sms) {
   return std::max(1, std::min(nM, (occ * sms + nN - 1) / nN));
 }
 
-static PbPlan pb_plan(int R, int C, int H1, int H2, int H3, int sms) {
+// Launch plan of a chain of nl layers (1-3) whose top pass is PB_ROUTE
+// (sa_pool_bwd) or PB_HEAD (sa_stats_bwd), the same for the workspace query
+// and the launch. The head reads h_nl, so the forward keeps nh = nl
+// activations there and nl - 1 under the route.
+struct PbPlan {
+  int top, nl, nh, K1, H[3], kin[3], P[3], S[3], chunk[3];
+  size_t off_x, off_h[3], off_du[3], off_pdw[3], off_pds[3], total;
+};
+
+static PbPlan pb_plan(int top, int nl, int R, int C, const int* H, int sms) {
   PbPlan p = {};
+  p.top = top, p.nl = nl, p.nh = top == PB_HEAD ? nl : nl - 1;
   p.K1 = (C + 15) / 16 * 16;
-  p.H[0] = H1, p.H[1] = H2, p.H[2] = H3;
-  p.kin[0] = p.K1, p.kin[1] = H1, p.kin[2] = H2;
+  for (int j = 0; j < nl; ++j) {
+    p.H[j] = H[j];
+    p.kin[j] = j ? H[j - 1] : p.K1;
+  }
   size_t off = 0;
   auto take = [&](size_t bytes) {
     const size_t o = off;
@@ -998,11 +852,10 @@ static PbPlan pb_plan(int R, int C, int H1, int H2, int H3, int sms) {
     return o;
   };
   p.off_x = take((size_t)R * p.K1 * 2);
-  p.off_h[0] = take((size_t)R * H1 * 2);
-  p.off_h[1] = take((size_t)R * H2 * 2);
-  for (int j = 0; j < 3; ++j) p.off_du[j] = take((size_t)R * p.H[j] * 2);
-  for (int j = 0; j < 3; ++j) {
-    const int M = p.kin[j], N = p.H[j];
+  for (int j = 0; j < p.nh; ++j) p.off_h[j] = take((size_t)R * H[j] * 2);
+  for (int j = 0; j < nl; ++j) p.off_du[j] = take((size_t)R * H[j] * 2);
+  for (int j = 0; j < nl; ++j) {
+    const int M = p.kin[j], N = H[j];
     const int tiles = ((M + PB_BM - 1) / PB_BM) * ((N + PB_BN - 1) / PB_BN);
     const int want = std::max(1, (2 * PB_MIN_BLOCKS * sms + tiles - 1) / tiles);
     int chunk = (R + want - 1) / want;
@@ -1010,8 +863,8 @@ static PbPlan pb_plan(int R, int C, int H1, int H2, int H3, int sms) {
     p.chunk[j] = chunk;
     p.S[j] = (R + chunk - 1) / chunk;
     p.off_pdw[j] = take((size_t)p.S[j] * M * N * 4);
-    p.P[j] = j == 2 ? pb_rows_p(PB_ROUTE, R, N, H2, 0, sms)
-                    : pb_rows_p(PB_DUAL, R, N, p.kin[j], p.H[j + 1], sms);
+    p.P[j] = j < nl - 1 ? pb_rows_p(PB_DUAL, R, N, M, H[j + 1], sms)
+                        : pb_rows_p(top, R, N, M, top == PB_HEAD ? N : 0, sms);
     p.off_pds[j] = take((size_t)p.P[j] * 2 * N * 4);
   }
   p.total = off;
@@ -1028,69 +881,80 @@ static int pb_rows(const PbRows& a, int P, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-extern "C" long long sv_sa_pool_bwd_ws(int R, int C, int H1, int H2, int H3, int sms) {
-  return (long long)pb_plan(R, C, H1, H2, H3, sms).total;
+// The operands of the top pass: d_pooled and the argmax slots with their
+// ns (PB_ROUTE), or dsym [H][H] and dS [H] (PB_HEAD)
+struct PbTop {
+  const float* dpool;
+  const int* argin;
+  int ns;
+  const bf16* dsym;
+  const float* dS;
+};
+
+static bool pb_shapes_ok(int R, int C, int nl, const int* H, int sms) {
+  if (R < 1 || C < 1 || sms < 1 || nl < 1 || nl > 3) return false;
+  for (int j = 0; j < nl; ++j)
+    if (H[j] < 16 || H[j] % 16) return false;
+  return true;
 }
 
-extern "C" int sv_sa_pool_bwd(const float* x, int R, int C, int ns, int need_dx,
-                              const bf16* w1, const float* a1, const float* b1, const bf16* w2,
-                              const float* a2, const float* b2, const bf16* w3,
-                              const float* a3, const float* b3, int H1, int H2, int H3,
-                              int sms, const float* dpool, const int* argin, float* dx,
-                              float* dw, float* ds, void* ws, void* stream) {
-  if (R < 1 || C < 1 || ns < 1 || R % ns || sms < 1) return (int)cudaErrorInvalidValue;
-  const int Hs[3] = {H1, H2, H3};
-  for (int j = 0; j < 3; ++j)
-    if (Hs[j] < 16 || Hs[j] % 16) return (int)cudaErrorInvalidValue;
-  const PbPlan p = pb_plan(R, C, H1, H2, H3, sms);
-  cudaStream_t st = (cudaStream_t)stream;
+// Every pass of a plan on one stream, in order: cvt, FWD, the top pass and
+// the dual passes down to layer 1, DX, then DW and the fixed-order
+// reductions per layer.
+static int pb_backward(const PbPlan& p, const PbTop& top, const float* x, int R, int C,
+                       int need_dx, const bf16* const* w, const float* const* a,
+                       const float* const* b, int sms, float* dx, float* dw, float* ds,
+                       void* ws, cudaStream_t st) {
+  const int nl = p.nl;
   unsigned char* base = static_cast<unsigned char*>(ws);
   bf16* xb = reinterpret_cast<bf16*>(base + p.off_x);
-  bf16* h[2] = {reinterpret_cast<bf16*>(base + p.off_h[0]),
-                reinterpret_cast<bf16*>(base + p.off_h[1])};
-  bf16* du[3];
-  for (int j = 0; j < 3; ++j) du[j] = reinterpret_cast<bf16*>(base + p.off_du[j]);
-  const bf16* w[3] = {w1, w2, w3};
-  const float* a[3] = {a1, a2, a3};
-  const float* b[3] = {b1, b2, b3};
-  const bf16* in[3] = {xb, h[0], h[1]};
+  bf16 *h[3] = {}, *du[3] = {};
+  const bf16* in[3] = {};
+  for (int j = 0; j < nl; ++j) {
+    if (j < p.nh) h[j] = reinterpret_cast<bf16*>(base + p.off_h[j]);
+    du[j] = reinterpret_cast<bf16*>(base + p.off_du[j]);
+    in[j] = j ? h[j - 1] : xb;
+  }
   int e;
   pb_cvt_kernel<<<8 * sms, 256, 0, st>>>(x, R, C, p.K1, xb);
   if ((e = (int)cudaGetLastError())) return e;
-  for (int j = 0; j < 2; ++j) {  // forward: h1, h2
+  for (int j = 0; j < p.nh; ++j) {  // forward: h1, h2, ...
     PbRows r = {};
     r.a1 = in[j], r.lda1 = p.kin[j], r.K1 = p.kin[j];
-    r.w1 = w[j], r.ldw1 = Hs[j];
-    r.sa = a[j], r.sb = b[j], r.out = h[j], r.M = R, r.N = Hs[j];
-    if ((e = pb_rows<PB_FWD>(r, pb_rows_p(PB_FWD, R, Hs[j], p.kin[j], 0, sms), st)))
-      return e;
+    r.w1 = w[j], r.ldw1 = p.H[j];
+    r.sa = a[j], r.sb = b[j], r.out = h[j], r.M = R, r.N = p.H[j];
+    if ((e = pb_rows<PB_FWD>(r, pb_rows_p(PB_FWD, R, p.H[j], p.kin[j], 0, sms), st))) return e;
   }
-  for (int j = 2; j >= 0; --j) {  // du3, du2, du1 with da / db partials
+  for (int j = nl - 1; j >= 0; --j) {  // du_nl .. du_1 with da / db partials
     PbRows r = {};
     r.a1 = in[j], r.lda1 = p.kin[j], r.K1 = p.kin[j];
-    r.w1 = w[j], r.ldw1 = Hs[j];
-    r.sa = a[j], r.sb = b[j], r.out = du[j], r.M = R, r.N = Hs[j];
+    r.w1 = w[j], r.ldw1 = p.H[j];
+    r.sa = a[j], r.sb = b[j], r.out = du[j], r.M = R, r.N = p.H[j];
     r.pds = reinterpret_cast<float*>(base + p.off_pds[j]);
-    if (j == 2) {
-      r.dpool = dpool, r.argin = argin, r.ns = ns;
+    if (j < nl - 1) {
+      r.a2 = du[j + 1], r.lda2 = p.H[j + 1], r.K2 = p.H[j + 1];
+      r.w2 = w[j + 1], r.ldw2 = p.H[j + 1];
+      e = pb_rows<PB_DUAL>(r, p.P[j], st);
+    } else if (p.top == PB_ROUTE) {
+      r.dpool = top.dpool, r.argin = top.argin, r.ns = top.ns;
       e = pb_rows<PB_ROUTE>(r, p.P[j], st);
     } else {
-      r.a2 = du[j + 1], r.lda2 = Hs[j + 1], r.K2 = Hs[j + 1];
-      r.w2 = w[j + 1], r.ldw2 = Hs[j + 1];
-      e = pb_rows<PB_DUAL>(r, p.P[j], st);
+      r.a2 = h[j], r.lda2 = p.H[j], r.K2 = p.H[j];
+      r.w2 = top.dsym, r.ldw2 = p.H[j], r.dS = top.dS;
+      e = pb_rows<PB_HEAD>(r, p.P[j], st);
     }
     if (e) return e;
   }
   if (need_dx) {
     PbRows r = {};
-    r.a1 = du[0], r.lda1 = H1, r.K1 = H1;
-    r.w1 = w1, r.ldw1 = H1;
+    r.a1 = du[0], r.lda1 = p.H[0], r.K1 = p.H[0];
+    r.w1 = w[0], r.ldw1 = p.H[0];
     r.outf = dx, r.Nreal = C, r.M = R, r.N = p.K1;
-    if ((e = pb_rows<PB_DX>(r, pb_rows_p(PB_DX, R, p.K1, H1, 0, sms), st))) return e;
+    if ((e = pb_rows<PB_DX>(r, pb_rows_p(PB_DX, R, p.K1, p.H[0], 0, sms), st))) return e;
   }
   size_t dwoff = 0, dsoff = 0;
-  for (int j = 0; j < 3; ++j) {
-    const int M = p.kin[j], N = Hs[j];
+  for (int j = 0; j < nl; ++j) {
+    const int M = p.kin[j], N = p.H[j];
     float* pdw = reinterpret_cast<float*>(base + p.off_pdw[j]);
     pb_dw_kernel<<<dim3((N + PB_BN - 1) / PB_BN, (M + PB_BM - 1) / PB_BM, p.S[j]), PB_THREADS,
                    0, st>>>(in[j], M, du[j], N, M, N, R, p.chunk[j], pdw);
@@ -1103,4 +967,51 @@ extern "C" int sv_sa_pool_bwd(const float* x, int R, int C, int ns, int need_dx,
     dsoff += 2 * (size_t)N;
   }
   return 0;
+}
+
+extern "C" long long sv_sa_pool_bwd_ws(int R, int C, int H1, int H2, int H3, int sms) {
+  const int H[3] = {H1, H2, H3};
+  return (long long)pb_plan(PB_ROUTE, 3, R, C, H, sms).total;
+}
+
+extern "C" int sv_sa_pool_bwd(const float* x, int R, int C, int ns, int need_dx,
+                              const bf16* w1, const float* a1, const float* b1, const bf16* w2,
+                              const float* a2, const float* b2, const bf16* w3,
+                              const float* a3, const float* b3, int H1, int H2, int H3,
+                              int sms, const float* dpool, const int* argin, float* dx,
+                              float* dw, float* ds, void* ws, void* stream) {
+  const int H[3] = {H1, H2, H3};
+  if (!pb_shapes_ok(R, C, 3, H, sms) || ns < 1 || R % ns) return (int)cudaErrorInvalidValue;
+  const bf16* w[3] = {w1, w2, w3};
+  const float* a[3] = {a1, a2, a3};
+  const float* b[3] = {b1, b2, b3};
+  PbTop top = {};
+  top.dpool = dpool, top.argin = argin, top.ns = ns;
+  return pb_backward(pb_plan(PB_ROUTE, 3, R, C, H, sms), top, x, R, C, need_dx, w, a, b, sms,
+                     dx, dw, ds, ws, (cudaStream_t)stream);
+}
+
+extern "C" long long sv_sa_stats_bwd_ws(int R, int C, int upto, int H1, int H2, int H3,
+                                        int sms) {
+  if (upto < 1 || upto > 3) return -1;
+  const int H[3] = {H1, H2, H3};
+  return (long long)pb_plan(PB_HEAD, upto, R, C, H, sms).total;
+}
+
+// dsym = bf16(dG + dG^T) [H][H] and dS [H], H = H_upto
+extern "C" int sv_sa_stats_bwd(const float* x, int R, int C, int upto, int need_dx,
+                               const bf16* w1, const float* a1, const float* b1,
+                               const bf16* w2, const float* a2, const float* b2,
+                               const bf16* w3, const float* a3, const float* b3, int H1, int H2,
+                               int H3, int sms, const bf16* dsym, const float* dS, float* dx,
+                               float* dw, float* ds, void* ws, void* stream) {
+  const int H[3] = {H1, H2, H3};
+  if (!pb_shapes_ok(R, C, upto, H, sms)) return (int)cudaErrorInvalidValue;
+  const bf16* w[3] = {w1, w2, w3};
+  const float* a[3] = {a1, a2, a3};
+  const float* b[3] = {b1, b2, b3};
+  PbTop top = {};
+  top.dsym = dsym, top.dS = dS;
+  return pb_backward(pb_plan(PB_HEAD, upto, R, C, H, sms), top, x, R, C, need_dx, w, a, b, sms,
+                     dx, dw, ds, ws, (cudaStream_t)stream);
 }

@@ -30,24 +30,25 @@ operands with f32 accumulation for every product, h = relu(u * a + b) in
 f32, the next layer and the moments read bf16(h), the pool takes the max of
 the f32 (unrounded) h3 and the first slot that attains it.
 
-Design on Hopper. ``sa_stats``, ``sa_pool`` and ``sa_stats_bwd``: each
-block takes row tiles of TM rows (a multiple of the pool's ``ns``, so whole
-centers), recomputes the chain with ``wmma`` bf16 16x16x16 tensor-core
-fragments (weights read from device memory / L2, the row tile's bf16
-activations in shared memory), and accumulates its sums, Gram, dW, da and
-db in a partial slot of its own; a second launch from the same source sums
-the slots in a fixed order. ``sa_pool_bwd`` is a chain of tiled
-``mma.sync`` m16n8k16 products over the rows, one pass per layer: the bf16
-activations h1, h2 and row cotangents du3, du2, du1 (the values the twin
-rounds to bf16) go to a workspace the wrapper allocates; each row pass's
-persistent blocks keep their da / db column sums in registers across the
-row tiles they walk, and the dW pass splits the rows into chunks whose
-64 x 64 output tiles stay in registers until one partial write. The ReLU
-mask, the argmax routing of d_pooled and the a / b scaling run on the
-accumulator registers. No float atomics anywhere: two runs are
-bit-identical. Bound: the bf16 products at 989 TFLOP/s (about 2.5 TFLOP per
-training step over the three levels) against the f32 rows read from
-device memory.
+Design on Hopper. ``sa_stats`` and ``sa_pool``: each block takes row
+tiles of TM rows (a multiple of the pool's ``ns``, so whole centers),
+recomputes the chain with ``wmma`` bf16 16x16x16 tensor-core fragments
+(weights read from device memory / L2, the row tile's bf16 activations in
+shared memory), and accumulates its sums and Gram in a partial slot of its
+own; a second launch from the same source sums the slots in a fixed order.
+``sa_stats_bwd`` and ``sa_pool_bwd`` are one chain of tiled ``mma.sync``
+m16n8k16 products over the rows, one pass per layer: the bf16 activations
+and row cotangents (the values the twin rounds to bf16) go to a workspace
+the wrapper allocates; each row pass's persistent blocks keep their da / db
+column sums in registers across the row tiles they walk, and the dW pass
+splits the rows into chunks whose 64 x 64 output tiles stay in registers
+until one partial write. The two differ only in the top pass: the argmax
+routing of d_pooled, or the head ``d = dS + bf16(h) dsym`` computed beside
+``u`` in one block. The ReLU mask, the routing, the dS term and the a / b
+scaling run on the accumulator registers. No float atomics anywhere: two
+runs are bit-identical. Bound: the bf16 products at 989 TFLOP/s (about 2.5
+TFLOP per training step over the three levels) against the f32 rows read
+from device memory.
 
 Left out: the ``axis_name`` / ``shard_map`` psum of the moments (SyncBN
 over a data-parallel mesh), which waits for the port's DDP. The grouped
@@ -68,10 +69,9 @@ from sceneverse_tpu_torch.ops.sa_forward import _bf16
 
 _MAX_SMEM = 227 * 1024
 _TILE_ROWS = (64, 32, 16)
-_MODES = {"stats": 0, "pool": 1, "stats_bwd": 2}
+_MODES = {"stats": 0, "pool": 1}
 # device pointers after the sizes, in the order of ``sv_sa_train``
-_OUTS = ("sum", "gram", "pooled", "arg", "dsym", "dS", "dx", "dw", "ds",
-         "part_a", "part_b")
+_OUTS = ("sum", "gram", "pooled", "arg", "part_a", "part_b")
 # row-group quantum of the TPU kernels' accumulators (``_ACC_ROWS``): the
 # shape gate of the fused route
 _ACC_ROWS = 8
@@ -154,14 +154,19 @@ def _lib():
         lib.plan_fn = _build.bind(lib, "sv_sa_train_smem",
                                   [I, I, I, I, I, I, I])
         lib.run_fn = _build.bind(lib, "sv_sa_train",
-                                 [I, P, I, I, I, I, I] + [P] * 9 + [I] * 6
+                                 [I, P, I, I, I, I] + [P] * 9 + [I] * 6
                                  + [P] * len(_OUTS) + [P])
         lib.pool_bwd_ws_fn = _build.bind(lib, "sv_sa_pool_bwd_ws",
                                          [I, I, I, I, I, I])
-        lib.pool_bwd_ws_fn.restype = ctypes.c_longlong
-        lib.pool_bwd_fn = _build.bind(lib, "sv_sa_pool_bwd",
-                                      [P, I, I, I, I] + [P] * 9
-                                      + [I] * 4 + [P] * 6 + [P])
+        lib.stats_bwd_ws_fn = _build.bind(lib, "sv_sa_stats_bwd_ws",
+                                          [I, I, I, I, I, I, I])
+        for f in (lib.pool_bwd_ws_fn, lib.stats_bwd_ws_fn):
+            f.restype = ctypes.c_longlong
+        # (x, R, C, ns | upto, need_dx, 9 layer operands, H1-H3, sms, the
+        # top pass's two operands, dx, dw, ds, workspace, stream)
+        bwd_args = [P, I, I, I, I] + [P] * 9 + [I] * 4 + [P] * 6 + [P]
+        lib.pool_bwd_fn = _build.bind(lib, "sv_sa_pool_bwd", bwd_args)
+        lib.stats_bwd_fn = _build.bind(lib, "sv_sa_stats_bwd", bwd_args)
         lib._bound = True
     return lib
 
@@ -217,15 +222,18 @@ def _plan(lib, mode, x, hs, upto, ns):
     return tm, blocks, smem
 
 
-def _launch(mode, x, ops, hs, upto, ns, plan, outs, need_dx=False):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(mode, x, ops, hs, upto, ns, plan, outs):
     """One main launch (per-block partials) and its fixed-order reductions,
     counted once."""
     tm, blocks, smem = plan
-    ptr = lambda t: None if t is None else t.data_ptr()
     code = _lib().run_fn(
         _MODES[mode], x.data_ptr(), x.shape[0], x.shape[1], upto, ns,
-        int(need_dx), *[ptr(t) for t in ops], *hs, tm, blocks, smem,
-        *[ptr(outs.get(k)) for k in _OUTS], _build.stream_ptr(x))
+        *[_ptr(t) for t in ops], *hs, tm, blocks, smem,
+        *[_ptr(outs.get(k)) for k in _OUTS], _build.stream_ptr(x))
     _build.LAUNCHES[f"sa_{mode}"] += 1
     _build.check(code, f"sa_{mode}")
 
@@ -248,30 +256,33 @@ def sa_stats(x, params, upto):
     return outs["sum"], outs["gram"]
 
 
-def _bwd_outs(x, hs, nlayers, tm, blocks, need_dx):
+def _chain_bwd(name, fn, ws_bytes, x, ops, hs, nlayers, arg, top, need_dx):
+    """One call of a backward chain of ``nlayers`` layers (``sv_sa_pool_bwd``
+    with arg = ns, ``sv_sa_stats_bwd`` with arg = upto; ``top``: the two
+    operands of its top pass) with a workspace of ``ws_bytes``, counted
+    once. Returns (dx or None, [(dW, da, db)] per layer)."""
     dev = x.device
-    kin = [_ceil16(x.shape[1])] + hs[:nlayers - 1]
-    dw_len = sum(k * h for k, h in zip(kin, hs[:nlayers]))
-    ds_len = 2 * sum(hs[:nlayers])
-    outs = {"dw": torch.empty(dw_len, device=dev),
-            "ds": torch.empty(ds_len, device=dev),
-            "part_a": torch.empty(blocks * dw_len, device=dev),
-            "part_b": torch.empty(blocks * (tm // 16) * ds_len, device=dev)}
-    if need_dx:
-        outs["dx"] = torch.empty_like(x)
-    return outs, kin
-
-
-def _split_grads(outs, kin, hs, nlayers, C):
+    R, C = x.shape
+    ws = torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
+    kin = [_ceil16(C)] + hs[:nlayers - 1]
+    dw = torch.empty(sum(k * h for k, h in zip(kin, hs[:nlayers])), device=dev)
+    ds = torch.empty(2 * sum(hs[:nlayers]), device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    code = fn(x.data_ptr(), R, C, arg, int(need_dx), *[_ptr(t) for t in ops],
+              *hs, _sm_count(dev.index or 0), *[t.data_ptr() for t in top],
+              _ptr(dx), dw.data_ptr(), ds.data_ptr(), ws.data_ptr(),
+              _build.stream_ptr(x))
+    _build.LAUNCHES[name] += 1
+    _build.check(code, name)
     grads, ow, os_ = [], 0, 0
     for j in range(nlayers):
         k, h = kin[j], hs[j]
-        dw = outs["dw"][ow:ow + k * h].view(k, h)
-        grads.append((dw[:C] if j == 0 else dw, outs["ds"][os_:os_ + h],
-                      outs["ds"][os_ + h:os_ + 2 * h]))
+        w = dw[ow:ow + k * h].view(k, h)
+        grads.append((w[:C] if j == 0 else w, ds[os_:os_ + h],
+                      ds[os_ + h:os_ + 2 * h]))
         ow += k * h
         os_ += 2 * h
-    return outs.get("dx"), grads
+    return dx, grads
 
 
 def sa_stats_bwd(x, params, upto, dS, dG, need_dx=True):
@@ -279,18 +290,20 @@ def sa_stats_bwd(x, params, upto, dS, dG, need_dx=True):
     if not x.is_cuda:
         dx, grads = mlp_stats_bwd_plain(x, params, upto, dS, dG)
         return (dx if need_dx else None), grads
+    if upto not in (1, 2, 3):
+        raise ValueError(f"sa_stats_bwd: upto={upto}")
     ops, hs = _operands("sa_stats_bwd", x, params, upto)
     H = hs[upto - 1]
     for t, shape, n in ((dS, (H,), "dS"), (dG, (H, H), "dG")):
         _build.require_cuda(t, f"sa_stats_bwd.{n}", (torch.float32,), len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"sa_stats_bwd: {n} must be {shape}")
-    plan = tm, blocks, _ = _plan(_lib(), "stats_bwd", x, hs, upto, 0)
-    outs, kin = _bwd_outs(x, hs, upto, tm, blocks, need_dx)
-    outs["dsym"] = (dG + dG.t()).to(torch.bfloat16).contiguous()
-    outs["dS"] = dS.contiguous()
-    _launch("stats_bwd", x, ops, hs, upto, 0, plan, outs, need_dx)
-    return _split_grads(outs, kin, hs, upto, x.shape[1])
+    lib = _lib()
+    dsym = (dG + dG.t()).to(torch.bfloat16).contiguous()
+    ws = lib.stats_bwd_ws_fn(*x.shape, upto, *hs,
+                             _sm_count(x.device.index or 0))
+    return _chain_bwd("sa_stats_bwd", lib.stats_bwd_fn, ws, x, ops, hs, upto,
+                      upto, (dsym, dS), need_dx)
 
 
 def _check_ns(name, x, ns):
@@ -330,25 +343,9 @@ def sa_pool_bwd(x, params, ns, dpooled, arg, need_dx=True):
     if tuple(dpooled.shape) != shape or tuple(arg.shape) != shape:
         raise ValueError(f"sa_pool_bwd: dpooled and arg must be {shape}")
     lib = _lib()
-    R, C = x.shape
-    sms = _sm_count(x.device.index or 0)
-    ws = torch.empty(lib.pool_bwd_ws_fn(R, C, *hs, sms), device=x.device,
-                     dtype=torch.uint8)
-    kin = [_ceil16(C)] + hs[:2]
-    outs = {"dw": torch.empty(sum(k * h for k, h in zip(kin, hs)),
-                              device=x.device),
-            "ds": torch.empty(2 * sum(hs), device=x.device)}
-    if need_dx:
-        outs["dx"] = torch.empty_like(x)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    code = lib.pool_bwd_fn(
-        x.data_ptr(), R, C, ns, int(need_dx), *[ptr(t) for t in ops], *hs,
-        sms, dpooled.data_ptr(), arg.data_ptr(), ptr(outs.get("dx")),
-        outs["dw"].data_ptr(), outs["ds"].data_ptr(), ws.data_ptr(),
-        _build.stream_ptr(x))
-    _build.LAUNCHES["sa_pool_bwd"] += 1
-    _build.check(code, "sa_pool_bwd")
-    return _split_grads(outs, kin, hs, 3, C)
+    ws = lib.pool_bwd_ws_fn(*x.shape, *hs, _sm_count(x.device.index or 0))
+    return _chain_bwd("sa_pool_bwd", lib.pool_bwd_fn, ws, x, ops, hs, 3, ns,
+                      (dpooled, arg), need_dx)
 
 
 # ------------------------------------------------------------- autograd ops

@@ -172,6 +172,7 @@ def _same_twice(fn):
 
 @pytest.mark.parametrize("R,ns,dims,need_dx", [
     (16 * 37, 16, [6, 16, 16, 32], True),            # small, ragged tiles
+    (16 * 37, 16, [259, 256, 512, 768], True),       # SA3 widths, ragged
     (2560 * 32 * 32, 32, [6, 64, 64, 128], False),   # SA1
     (2560 * 16 * 32, 32, [131, 128, 128, 256], True),  # SA2
     (2560 * 16, 16, [259, 256, 512, 768], True),     # SA3
@@ -305,6 +306,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # dG not (H, H)
         st.sa_stats_bwd(x, params, 1, torch.zeros(16, device=dev),
                         torch.zeros((16, 8), device=dev))
+    with pytest.raises(ValueError):  # dS not (H,)
+        st.sa_stats_bwd(x, params, 1, torch.zeros(8, device=dev),
+                        torch.zeros((16, 16), device=dev))
 
 
 @pytest.mark.parametrize("G", [48, 2560])  # small; SA2 of the GPS slice
