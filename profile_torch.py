@@ -18,12 +18,13 @@ batch (with ``--eval``: eval forwards on one fixed test batch), times
 ``--amp`` mode (``mixed_precision``). Prints wall ms/step with and without
 the profiler, device kernel time per step, the device busy share of both,
 the host calls that wait on the device (synchronisations, allocations,
-copies) and the device time by kernel family (this port's kernels, GEMMs,
+copies), the device time by kernel family (this port's kernels, GEMMs,
 elementwise and reduction kernels (BatchNorm, ReLU, LayerNorm, GELU),
-other); writes the torch.profiler tables, by device and by host time, to
+other) and, for the ``sa_train`` kernels, by entry (the device span of
+each wrapper's ``record_function`` range); writes the torch.profiler
+tables, by device and by host time, to
 ``profile_<frozen|unfrozen>[_fused][_exact][_eval]_<amp>.txt`` in ``OUT_DIR``.
-Imports nothing of
-JAX or of the JAX package.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -44,8 +45,10 @@ _ELEMENTWISE = ("elementwise", "reduce_kernel", "norm", "batch_norm")
 _HOST_WAITS = ("Synchronize", "cudaMalloc", "cudaFree", "cudaMemcpy")
 
 
-_SA_TRAIN = ("st_fwd_kernel", "st_reduce_kernel", "pb_rows_kernel",
-             "pb_dw_kernel", "pb_cvt_kernel")
+_SA_TRAIN = ("st_reduce_kernel", "pb_rows_kernel", "pb_dw_kernel",
+             "pb_cvt_kernel")
+# the sa_train wrappers' profiler ranges: their kernels share the names above
+_SA_ENTRIES = ("sa_stats", "sa_pool", "sa_stats_bwd", "sa_pool_bwd")
 _PORT = ("mha_fwd", "mha_bwd", "sa_group", "sa_dense", "ball_group", "fps",
          "fa_fwd", "fa_dkv", "fa_dq")
 
@@ -96,7 +99,7 @@ def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
             step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fam, total = {}, 0.0
+    fam, total, entries = {}, 0.0, {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -104,6 +107,9 @@ def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
         if (dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
                 or "#" in e.key or e.key.startswith("ProfilerStep")):
             continue  # user-annotation ranges would count their kernels twice
+        if e.key in _SA_ENTRIES:  # a wrapper's range on the device
+            entries[e.key] = (dev_us, e.count)
+            continue
         f = fam.setdefault(family(e.key), [0.0, []])
         f[0] += dev_us
         f[1].append((dev_us, e.key))
@@ -119,6 +125,10 @@ def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
               f"({us / total:.3f} of device time)")
         for t, n in sorted(items, reverse=True)[:3]:
             print(f"[profile {tag} {amp}]       {t / steps / 1e3:8.2f} ms  {n[:90]}")
+    for k, (us, n) in sorted(entries.items()):
+        print(f"[profile {tag} {amp}]   sa_train entry {k:12s} "
+              f"{us / steps / 1e3:8.2f} ms/step on the device, "
+              f"{n / steps:.0f} calls/step")
     for e in prof.key_averages():  # host calls that wait on the device
         if any(t in e.key for t in _HOST_WAITS):
             print(f"[profile {tag} {amp}]   host {e.key}: "

@@ -3,258 +3,36 @@
 // rows, forward and backward.
 //
 // Replaces the four Pallas kernels of sceneverse_tpu/ops/pallas/sa_train.py:
-//   sv_sa_train mode 0  sa_stats      _stats_kernel      (:103): sum and Gram of bf16(h_upto)
-//   sv_sa_train mode 1  sa_pool       _pool_kernel       (:210): max / first argmax of f32 h3
-//   sv_sa_stats_bwd     sa_stats_bwd  _stats_bwd_kernel  (:184): dh = dS + h (dG + dG^T), back
-//   sv_sa_pool_bwd      sa_pool_bwd   _pool_bwd_kernel   (:232): d_pooled to the argmax slot, back
+//   sv_sa_stats      sa_stats      _stats_kernel      (:103): sum and Gram of bf16(h_upto)
+//   sv_sa_pool       sa_pool       _pool_kernel       (:210): max / first argmax of f32 h3
+//   sv_sa_stats_bwd  sa_stats_bwd  _stats_bwd_kernel  (:184): dh = dS + h (dG + dG^T), back
+//   sv_sa_pool_bwd   sa_pool_bwd   _pool_bwd_kernel   (:232): d_pooled to the argmax slot, back
 //
-// Every product has bf16 operands and f32 accumulation on the tensor cores;
-// h = relu(u * a + b) in f32 without FMA contraction, rounded to bf16 for
-// the next layer and the moments, as the TPU kernels and the plain twins in
-// ops/sa_train.py do. No float atomics: partial sums are reduced in a fixed
-// order (st_reduce_kernel), so two runs are bit-identical.
+// Every product has bf16 operands and f32 accumulation on the tensor cores
+// (mma.sync m16n8k16); h = relu(u * a + b) in f32 without FMA contraction,
+// rounded to bf16 for the next layer and the moments, as the TPU kernels and
+// the plain twins in ops/sa_train.py do. No float atomics: partial sums are
+// reduced in a fixed order (st_reduce_kernel), so two runs are bit-identical.
 //
-// The forwards, modes 0-1 (st_fwd_kernel, nvcuda::wmma 16x16x16): a block
-// walks row tiles of TM rows (whole centers for the pool): the tile's rows
-// go to shared memory as bf16, the chain is recomputed there with the
-// activations kept on chip, the weights are read from device memory (L2);
-// sums and Gram go to a partial slot owned by the block.
-//
-// The backwards share one chain of kernels (pb_*, the note at their section
-// below): tiled mma.sync GEMMs over the rows, one pass per layer, with the
-// bf16 activations and row cotangents in a workspace and the weight-gradient
-// and column sums in registers. They differ only in the top pass: the
-// argmax routing of d_pooled (sa_pool_bwd) or the head d = dS + h dsym
-// (sa_stats_bwd). Bound: the bf16 products at the GPS widths at 989 TFLOP/s.
-// Times and bounds: chip_smoke.py's sa_train phase, PERF.md rows 7-10.
+// All four entries are one chain of tiled passes over the rows (pb_*, the
+// note at their section below) with the bf16 activations in a workspace the
+// wrapper allocates; they differ in the top pass: the column sums of the
+// bf16 h_upto and its Gram (sa_stats), the max and first argmax of the f32
+// h3 over each center's rows (sa_pool), the argmax routing of d_pooled
+// (sa_pool_bwd) or the head d = dS + h dsym (sa_stats_bwd). Bound: the bf16
+// products at the GPS widths at 989 TFLOP/s, or the f32 rows read from
+// device memory. Times and bounds: chip_smoke.py's sa_train phase, PERF.md
+// rows 7-10.
 #include "common.cuh"
-#include <mma.h>
 
 #include <algorithm>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-
-constexpr int ST_WARPS = 8;
-constexpr int ST_THREADS = ST_WARPS * 32;
-constexpr int ST_PAD = 8;  // bf16 elements of padding per shared-memory row
-
-// sv_sa_train modes; the backwards have their own entry points
-enum { M_STATS = 0, M_POOL = 1 };
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// one layer: W (k, h) row-major bf16, k the (padded) input width
-struct StLayer {
-  const bf16* w;
-  const float* a;
-  const float* b;
-  int k, h;
-};
-
-struct StArgs {
-  const float* x;  // grouped rows, (R, C) row-major f32
-  int mode, R, C, K1, upto, ns, TM, nl;  // nl: layers of the chain
-  StLayer L[3];
-  float* psum;    // stats: [P][TM/16][H] row-group sums
-  float* pgram;   // stats: [P][H][H]
-  float* pooled;  // pool: [R/ns][H3]
-  int* arg;       // pool: [R/ns][H3] slot
-};
-
-struct StSmem {
-  int x, h[3], scr, pmax, parg, total;
-};
 
 __host__ __device__ inline int st_align(int b) { return (b + 127) & ~127; }
 
-// Shared-memory plan, the same on host and device (byte offsets).
-__host__ __device__ inline StSmem st_smem(int mode, int K1, int upto, const int* H, int TM) {
-  const int nh = mode == M_POOL ? 2 : upto;  // layers whose bf16 h stays in shared memory
-  StSmem s;
-  int off = 0;
-  s.x = off;
-  off += st_align(TM * (K1 + ST_PAD) * 2);
-  for (int j = 0; j < 3; ++j) {
-    s.h[j] = off;
-    if (j < nh) off += st_align(TM * (H[j] + ST_PAD) * 2);
-  }
-  s.scr = off;
-  off += st_align(ST_WARPS * 512 * 4);
-  s.pmax = s.parg = off;
-  if (mode == M_POOL) {
-    off += st_align((TM / 16) * H[2] * 4);
-    s.parg = off;
-    off += st_align((TM / 16) * H[2] * 4);
-  }
-  s.total = off;
-  return s;
-}
-
-// acc += a[16 x K] (shared, row-major) @ b[K x 16] (row-major, ld ldb)
-__device__ __forceinline__ void st_mm(FragC& acc, const bf16* a, int lda, const bf16* b,
-                                      int ldb, int K) {
-  FragA fa;
-  FragB fb;
-  for (int k = 0; k < K; k += 16) {
-    wmma::load_matrix_sync(fa, a + k, lda);
-    wmma::load_matrix_sync(fb, b + (size_t)k * ldb, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
-
-// dst[16 x 16] (global f32, ld) = (first ? 0 : dst) + p^T q over TM rows
-__device__ __forceinline__ void st_acc_tile(float* dst, int ld, bool first, const bf16* p,
-                                            int ldp, const bf16* q, int ldq, int TM) {
-  FragC acc;
-  if (first)
-    wmma::fill_fragment(acc, 0.f);
-  else
-    wmma::load_matrix_sync(acc, dst, ld, wmma::mem_row_major);
-  FragAT fa;
-  FragB fb;
-  for (int k = 0; k < TM; k += 16) {
-    wmma::load_matrix_sync(fa, p + (size_t)k * ldp, ldp);
-    wmma::load_matrix_sync(fb, q + (size_t)k * ldq, ldq);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-  wmma::store_matrix_sync(dst, acc, ld, wmma::mem_row_major);
-}
-
 __device__ __forceinline__ float st_affine(float u, float a, float b) {
   return __fadd_rn(__fmul_rn(u, a), b);
-}
-
-// rows r0.. of x (f32, R x C) -> bf16 shared [TM][K1 + PAD], zero padded
-__device__ void st_load_x(const StArgs& A, int r0, bf16* xs) {
-  const int ld = A.K1 + ST_PAD;
-  for (int i = threadIdx.x; i < A.TM * A.K1; i += ST_THREADS) {
-    const int r = i / A.K1, c = i - r * A.K1;
-    float v = 0.f;
-    if (c < A.C && r0 + r < A.R) v = A.x[(size_t)(r0 + r) * A.C + c];
-    xs[r * ld + c] = __float2bfloat16_rn(v);
-  }
-}
-
-enum { EPI_STORE = 0, EPI_STATS = 1, EPI_POOL = 2 };
-
-// One forward layer over the row tile: h = relu(in @ W * a + b).
-//   EPI_STORE  bf16 h to out;
-//   EPI_STATS  bf16 h to out (rows past R zeroed) and each 16-row group's
-//              column sums into psum_blk (the block's slot);
-//   EPI_POOL   each 16-row group's max of the f32 h and its first row.
-__device__ void st_fwd_layer(const StArgs& A, const StLayer& L, const bf16* in, int ldin,
-                             bf16* out, int ldout, float* scr, int epi, int r0,
-                             float* psum_blk, bool first, float* pmax, int* parg) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nc = L.h / 16, ntile = (A.TM / 16) * nc;
-  float* ws = scr + warp * 512;
-  for (int t = warp; t < ntile; t += ST_WARPS) {
-    const int r = t / nc, c = t - r * nc;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    st_mm(acc, in + r * 16 * ldin, ldin, L.w + c * 16, L.h, L.k);
-    wmma::store_matrix_sync(ws, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int rr = e >> 4, col = c * 16 + (e & 15);
-      float h = fmaxf(st_affine(ws[e], L.a[col], L.b[col]), 0.f);
-      if (epi == EPI_POOL) {
-        ws[e] = h;
-        continue;
-      }
-      if (epi == EPI_STATS && r0 + r * 16 + rr >= A.R) h = 0.f;
-      out[(r * 16 + rr) * ldout + col] = __float2bfloat16_rn(h);
-    }
-    __syncwarp();
-    if (lane < 16) {
-      const int col = c * 16 + lane;
-      if (epi == EPI_STATS) {
-        float s = 0.f;
-        for (int i = 0; i < 16; ++i) s += __bfloat162float(out[(r * 16 + i) * ldout + col]);
-        float* d = psum_blk + r * L.h + col;
-        *d = first ? s : *d + s;
-      } else if (epi == EPI_POOL) {
-        float best = ws[lane];
-        int bi = 0;
-        for (int i = 1; i < 16; ++i) {
-          const float v = ws[i * 16 + lane];
-          if (v > best) {
-            best = v;
-            bi = i;
-          }
-        }
-        pmax[r * L.h + col] = best;
-        parg[r * L.h + col] = r * 16 + bi;
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// modes 0 and 1
-__global__ void __launch_bounds__(ST_THREADS) st_fwd_kernel(StArgs A) {
-  extern __shared__ __align__(128) unsigned char st_sm[];
-  const int H[3] = {A.L[0].h, A.L[1].h, A.L[2].h};
-  const StSmem S = st_smem(A.mode, A.K1, A.upto, H, A.TM);
-  bf16* xs = reinterpret_cast<bf16*>(st_sm + S.x);
-  float* scr = reinterpret_cast<float*>(st_sm + S.scr);
-  float* pmax = reinterpret_cast<float*>(st_sm + S.pmax);
-  int* parg = reinterpret_cast<int*>(st_sm + S.parg);
-  const int warp = threadIdx.x >> 5;
-  const int ntiles = (A.R + A.TM - 1) / A.TM, g16 = A.TM / 16;
-  const bool stats = A.mode == M_STATS;
-  const int Hl = A.L[A.nl - 1].h;
-  float* psum_blk = stats ? A.psum + (size_t)blockIdx.x * g16 * Hl : nullptr;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const bool first = t == (int)blockIdx.x;
-    const int r0 = t * A.TM;
-    __syncthreads();  // the previous tile's readers are done
-    st_load_x(A, r0, xs);
-    __syncthreads();
-    const bf16* in = xs;
-    int ldin = A.K1 + ST_PAD;
-    for (int j = 0; j < A.nl; ++j) {
-      const int epi = j < A.nl - 1 ? EPI_STORE : (stats ? EPI_STATS : EPI_POOL);
-      bf16* out = reinterpret_cast<bf16*>(st_sm + S.h[j]);
-      const int ldo = H[j] + ST_PAD;
-      st_fwd_layer(A, A.L[j], in, ldin, out, ldo, scr, epi, r0, psum_blk, first, pmax, parg);
-      __syncthreads();
-      in = out;
-      ldin = ldo;
-    }
-    if (stats) {  // Gram of the tile's bf16 h_upto into the block's slot
-      const int nc = Hl / 16;
-      float* g = A.pgram + (size_t)blockIdx.x * Hl * Hl;
-      for (int tt = warp; tt < nc * nc; tt += ST_WARPS) {
-        const int i = tt / nc, jj = tt - i * nc;
-        st_acc_tile(g + i * 16 * Hl + jj * 16, Hl, first, in + i * 16, ldin, in + jj * 16,
-                    ldin, A.TM);
-      }
-    } else {  // 16-row maxima -> each center's max and first argmax
-      const int H3 = H[2], cpt = A.TM / A.ns, sub = A.ns / 16;
-      for (int i = threadIdx.x; i < cpt * H3; i += ST_THREADS) {
-        const int q = i / H3, col = i - q * H3;
-        const int center = t * cpt + q;
-        if ((size_t)center * A.ns >= (size_t)A.R) continue;
-        const int s0 = q * sub;
-        float best = pmax[s0 * H3 + col];
-        int bi = parg[s0 * H3 + col];
-        for (int s = 1; s < sub; ++s) {
-          const float v = pmax[(s0 + s) * H3 + col];
-          if (v > best) {
-            best = v;
-            bi = parg[(s0 + s) * H3 + col];
-          }
-        }
-        A.pooled[(size_t)center * H3 + col] = best;
-        A.arg[(size_t)center * H3 + col] = bi - q * A.ns;
-      }
-    }
-  }
 }
 
 // out[k] = sum over q of part[q][k], q in a fixed order: thread row ty sums
@@ -281,99 +59,63 @@ static int st_reduce(const float* part, int Q, int L, float* out, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
-extern "C" int sv_sa_train_smem(int mode, int C, int upto, int H1, int H2, int H3, int TM) {
-  if (mode != M_STATS && mode != M_POOL) return -1;
-  const int H[3] = {H1, H2, H3};
-  return st_smem(mode, (C + 15) / 16 * 16, upto, H, TM).total;
-}
-
-extern "C" int sv_sa_train(int mode, const float* x, int R, int C, int upto, int ns,
-                           const bf16* w1, const float* a1, const float* b1, const bf16* w2,
-                           const float* a2, const float* b2, const bf16* w3, const float* a3,
-                           const float* b3, int H1, int H2, int H3, int TM, int P, int smem,
-                           float* sum, float* gram, float* pooled, int* arg, float* part_a,
-                           float* part_b, void* stream) {
-  if (mode != M_STATS && mode != M_POOL) return (int)cudaErrorInvalidValue;
-  StArgs A = {};
-  A.mode = mode;
-  A.x = x;
-  A.R = R;
-  A.C = C;
-  A.K1 = (C + 15) / 16 * 16;
-  A.upto = upto;
-  A.ns = ns;
-  A.TM = TM;
-  A.nl = mode == M_POOL ? 3 : upto;
-  const bf16* w[3] = {w1, w2, w3};
-  const float* a[3] = {a1, a2, a3};
-  const float* b[3] = {b1, b2, b3};
-  const int H[3] = {H1, H2, H3};
-  int kin = A.K1;
-  for (int j = 0; j < 3; ++j) {
-    A.L[j] = StLayer{w[j], a[j], b[j], kin, H[j]};
-    kin = H[j];
-  }
-  A.psum = part_a;
-  A.pgram = part_b;
-  A.pooled = pooled;
-  A.arg = arg;
-  cudaStream_t st = (cudaStream_t)stream;
-  int e = (int)cudaFuncSetAttribute(st_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    smem);
-  if (e) return e;
-  st_fwd_kernel<<<P, ST_THREADS, smem, st>>>(A);
-  if ((e = (int)cudaGetLastError()) || mode == M_POOL) return e;
-  const int Hl = H[upto - 1];
-  if ((e = st_reduce(part_a, P * (TM / 16), Hl, sum, st))) return e;
-  return st_reduce(part_b, P, Hl * Hl, gram, st);
-}
-
 // ===========================================================================
-// The backwards, sa_pool_bwd (sv_sa_pool_bwd) and sa_stats_bwd
-// (sv_sa_stats_bwd): a chain of tiled tensor-core GEMMs over the rows.
+// The passes: a chain of tiled tensor-core GEMMs over the rows, behind all
+// four entries (sv_sa_stats, sv_sa_pool, sv_sa_stats_bwd, sv_sa_pool_bwd).
 //
 // Split: one pass per layer, with the bf16 activations and row cotangents
 // (exactly the values the twin rounds to bf16) kept in a device workspace.
-// Every sum of dW, da and db runs over all R rows, and du_j needs every
-// column of du_{j+1}; a block that kept all three layers' dW in registers
-// would need 264 KB (SA2) to 1.6 MB (SA3). So each pass is a plain tiled
-// product whose block owns one output tile and keeps its sums in registers
-// for every row it walks. For a chain of nl layers (top layer t = nl):
+// Every sum of dW, da and db (and of the moments) runs over all R rows, and
+// du_j needs every column of du_{j+1}; a block that kept all three layers'
+// dW in registers would need 264 KB (SA2) to 1.6 MB (SA3). So each pass is a
+// plain tiled product whose block owns one output tile and keeps its sums in
+// registers for every row it walks. For a chain of nl layers (top layer
+// t = nl):
 //   cvt    xb = bf16(x), zero-padded to K1 columns
 //   FWD    h1 = bf16(relu(xb W1 * a1 + b1)), h2 likewise, up to h_{t-1}
-//          (the route) or h_t (the head)
-//   top    ROUTE (sa_pool_bwd): u_t = h_{t-1} W_t, d_t = d_pooled at the
+//          (h_t too under the head)
+//   top    STATS (sa_stats): h_t as FWD, and the column sums of bf16(h_t)
+//          over the rows < R in registers; then the Gram h_t^T h_t as a DW
+//          pass with in = du = h_t;
+//          POOL (sa_pool): h_t = relu(u_t a_t + b_t) in f32, staged in shared
+//          memory and scanned per (center, column) over the center's ns
+//          rows in slot order, strictly greater wins (the first slot on a
+//          tie); needs 64 % ns == 0, so that a 64-row tile holds whole
+//          centers; h_t never leaves the block;
+//          ROUTE (sa_pool_bwd): u_t = h_{t-1} W_t, d_t = d_pooled at the
 //          saved argmax slot, else 0;
 //          HEAD (sa_stats_bwd): u_t = h_{t-1} W_t and d_t = dS + h_t dsym
 //          (dsym = bf16(dG + dG^T), symmetric) in one block, the dual pass
 //          with dS added to the f32 d of rows < R;
-//          then du_t = bf16(dz a_t), da_t += dz u_t, db_t += dz (dz = d_t
-//          where u_t a_t + b_t > 0)
+//          then (ROUTE, HEAD) du_t = bf16(dz a_t), da_t += dz u_t, db_t += dz
+//          (dz = d_t where u_t a_t + b_t > 0)
 //   DUAL   u_j = in_j W_j and d_j = du_{j+1} W_{j+1}^T in one block; du_j,
 //          da_j, db_j; for j = t - 1 .. 1
 //   DX     dx = du1 W1^T, the first C columns (when need_dx)
 //   DW     dW_j = in_j^T du_j, split over row chunks; each block walks its
 //          chunk with the 64 x 64 tile's sums in registers and writes its
 //          partial once
-// then st_reduce sums the row-block partials of da / db and the chunk
-// partials of dW in a fixed order (no float atomics: two runs agree bit for
-// bit). Tiles: 64 x 64 outputs, 4 warps of 32 x 32 (mma.sync m16n8k16 bf16,
-// f32 sums), k slices of 32. Row passes (pb_rows_kernel) are persistent,
-// one wave at their occupancy: a block loads the weight slices of its 64
-// columns into shared memory once (where they are at most 256 deep; deeper
-// ones stream beside A), then walks its 64-row tiles as one stream of A
-// slices through a 3-slot cp.async ring that runs across tile boundaries;
-// a and b (and dS) of its columns and, for the routing, the tile's argmax
-// slots and d_pooled (prefetched with the tile's first slice) sit in shared
-// memory; the ReLU mask, the routing and the a / b scaling run on the
-// accumulator registers; the output tile leaves through shared memory in
-// 16-byte rows; da / db column sums stay in registers until the block's one
-// partial write. The dW pass (pb_dw_kernel) walks a row chunk per block
-// through a 2-slot ring (20 KB static). Shared memory per row pass at SA2:
-// 52-88 KB (2-4 blocks per SM). ptxas: pb_rows_kernel 100-128 registers at
-// __launch_bounds__(128, 4), the dual pass spilling 140 B; pb_dw_kernel 105.
-// The workspace traffic (about 2.4 GB written at SA2) costs less than
-// recomputing the chain once per column slice.
+// then st_reduce sums the row-block partials of the column sums (da / db, or
+// sum h) and the chunk partials of dW (or the Gram) in a fixed order (no
+// float atomics: two runs agree bit for bit). Tiles: 64 x 64 outputs, 4
+// warps of 32 x 32 (mma.sync m16n8k16 bf16, f32 sums), k slices of 32. Row
+// passes (pb_rows_kernel) are persistent, one wave at their occupancy: a
+// block loads the weight slices of its 64 columns into shared memory once
+// (where they are at most 256 deep; deeper ones stream beside A), then walks
+// its 64-row tiles as one stream of A slices through a 3-slot cp.async ring
+// that runs across tile boundaries; a and b (and dS) of its columns and, for
+// the routing, the tile's argmax slots and d_pooled (prefetched with the
+// tile's first slice) sit in shared memory; the ReLU, the mask, the routing
+// and the a / b scaling run on the accumulator registers; the output tile
+// leaves through shared memory in 16-byte rows; column sums stay in
+// registers until the block's one partial write. The dW pass (pb_dw_kernel)
+// walks a row chunk per block through a 2-slot ring (20 KB static). Shared
+// memory per row pass at SA2: 52-88 KB (2-4 blocks per SM). ptxas (PERF.md
+// has the current counts): pb_rows_kernel 100-128 registers at
+// __launch_bounds__(128, 4), the dual passes spilling 140 B; pb_dw_kernel
+// 105. The workspace traffic (about 2.4 GB written at SA2 in sa_pool_bwd,
+// 1.05 GB in sa_pool) costs less than recomputing the chain once per column
+// slice.
 // ===========================================================================
 constexpr int PB_BM = 64, PB_BN = 64, PB_BK = 32, PB_THREADS = 128;
 constexpr int PB_LDK = PB_BK + 8;        // bf16 stride of a [64][32] tile
@@ -381,7 +123,9 @@ constexpr int PB_LDW = PB_BM + 8;        // bf16 stride of a [32][64] tile
 constexpr int PB_TILE = PB_BM * PB_LDK;  // bf16 per staged tile (>= 32 * 72)
 constexpr int PB_MIN_BLOCKS = 4;         // blocks per SM asked of ptxas
 
-enum { PB_FWD = 0, PB_ROUTE = 1, PB_DUAL = 2, PB_DX = 3, PB_HEAD = 4 };
+enum {
+  PB_FWD = 0, PB_ROUTE = 1, PB_DUAL = 2, PB_DX = 3, PB_HEAD = 4, PB_STATS = 5, PB_POOL = 6
+};
 
 // the passes with a second product, d = a2 @ w2^T
 __host__ __device__ constexpr bool pb_dual(int mode) {
@@ -492,11 +236,13 @@ struct PbRows {
   const float* dS;  // PB_HEAD: added to d (N)
   const float* dpool;  // PB_ROUTE: [M / ns][N]
   const int* argin;
-  int ns;
-  bf16* out;  // h (PB_FWD) or du, [M][N]
+  int ns;  // PB_ROUTE, PB_POOL: rows per center
+  bf16* out;  // h (PB_FWD, PB_STATS) or du, [M][N]
   float* outf;  // PB_DX: [M][Nreal]
   int Nreal;
-  float* pds;  // da | db partials, [gridDim.y][2N]
+  float* pooled;  // PB_POOL: max and its first slot, [M / ns][N]
+  int* argout;
+  float* pds;  // da | db partials, [gridDim.y][2N]; PB_STATS: sum h, [gridDim.y][N]
   int M, N;
 };
 
@@ -581,6 +327,8 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
   const int ldw1 = MODE == PB_DX ? K1p + 8 : PB_BN + 8, ldw2 = K2p + 8;
   constexpr bool DUAL = pb_dual(MODE);
   constexpr bool BWD = MODE == PB_ROUTE || DUAL;
+  constexpr bool FWD = MODE == PB_FWD || MODE == PB_STATS || MODE == PB_POOL;
+  constexpr bool STAGE_F = MODE == PB_DX || MODE == PB_POOL;  // the tile staged in f32
   if (MODE != PB_DX)
     for (int i = threadIdx.x; i < PB_BN; i += PB_THREADS) {
       const int c = n0 + i;
@@ -697,8 +445,10 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float u = acc[mi][ni][r * 2 + e];
-            if (MODE == PB_FWD) {
+            if (FWD) {
               y[e] = fmaxf(st_affine(u, s_a[cl + e], s_b[cl + e]), 0.f);
+              if (MODE == PB_STATS && row < M)  // the moments read bf16(h)
+                cda[ni][e] += __bfloat162float(__float2bfloat16_rn(y[e]));
             } else if (MODE == PB_DX) {
               y[e] = u;
             } else {
@@ -720,7 +470,7 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
             acc[mi][ni][r * 2 + e] = 0.f;
             accd[mi][ni][r * 2 + e] = 0.f;
           }
-          if (MODE == PB_DX) {
+          if (STAGE_F) {
             stage_f[rl * PB_LDF + cl] = y[0];
             stage_f[rl * PB_LDF + cl + 1] = y[1];
           } else {
@@ -734,6 +484,24 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
         if (m0 + rl < M && c < P.Nreal)
           P.outf[(size_t)(m0 + rl) * P.Nreal + c] = stage_f[rl * PB_LDF + cl];
       }
+    } else if (MODE == PB_POOL) {  // each (center, column) of the tile over its ns rows
+      const int cpt = PB_BM / P.ns, nctr = M / P.ns;
+      for (int t = threadIdx.x; t < cpt * PB_BN; t += PB_THREADS) {
+        const int q = t / PB_BN, cl = t - q * PB_BN, c = n0 + cl;
+        if (c_lo + q >= nctr || c >= N) continue;
+        const float* col = stage_f + q * P.ns * PB_LDF + cl;
+        float best = col[0];
+        int bi = 0;
+        for (int s2 = 1; s2 < P.ns; ++s2) {
+          const float v = col[s2 * PB_LDF];
+          if (v > best) {
+            best = v;
+            bi = s2;
+          }
+        }
+        P.pooled[(size_t)(c_lo + q) * N + c] = best;
+        P.argout[(size_t)(c_lo + q) * N + c] = bi;
+      }
     } else {  // 16-byte pieces of bf16 rows
       for (int t = threadIdx.x; t < PB_BM * (PB_BN / 8); t += PB_THREADS) {
         const int rl = t / (PB_BN / 8), c8 = (t % (PB_BN / 8)) * 8;
@@ -746,7 +514,9 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
     // stream barrier
   }
   sv_cp_wait<0>();
-  if (BWD) {  // the block's column sums: over the quad rows, then the 2 warp rows
+  if (BWD || MODE == PB_STATS) {
+    // the block's column sums (da | db, or sum h): over the quad rows, then
+    // the 2 warp rows
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -755,21 +525,21 @@ __global__ void __launch_bounds__(PB_THREADS, PB_MIN_BLOCKS) pb_rows_kernel(PbRo
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1) {
           va += __shfl_xor_sync(SV_FULL_MASK, va, off);
-          vb += __shfl_xor_sync(SV_FULL_MASK, vb, off);
+          if (BWD) vb += __shfl_xor_sync(SV_FULL_MASK, vb, off);
         }
         if (g == 0) {
           const int cl = wn * 32 + ni * 8 + t4 * 2 + e;
           red[0][wm][cl] = va;
-          red[1][wm][cl] = vb;
+          if (BWD) red[1][wm][cl] = vb;
         }
       }
     __syncthreads();
     for (int t = threadIdx.x; t < PB_BN; t += PB_THREADS) {
       const int c = n0 + t;
       if (c < N) {
-        float* dst = P.pds + (size_t)blockIdx.y * 2 * N;
+        float* dst = P.pds + (size_t)blockIdx.y * (BWD ? 2 : 1) * N;
         dst[c] = red[0][0][t] + red[0][1][t];
-        dst[N + c] = red[1][0][t] + red[1][1][t];
+        if (BWD) dst[N + c] = red[1][0][t] + red[1][1][t];
       }
     }
   }
@@ -828,10 +598,25 @@ static int pb_rows_p(int mode, int M, int N, int K1, int K2, int sms) {
   return std::max(1, std::min(nM, (occ * sms + nN - 1) / nN));
 }
 
-// Launch plan of a chain of nl layers (1-3) whose top pass is PB_ROUTE
-// (sa_pool_bwd) or PB_HEAD (sa_stats_bwd), the same for the workspace query
-// and the launch. The head reads h_nl, so the forward keeps nh = nl
-// activations there and nl - 1 under the route.
+// Row chunks of a DW pass over R rows (a multiple of 32 rows each): about
+// two waves of its M x N output tiles
+static void pb_split(int M, int N, int R, int sms, int& chunk, int& S) {
+  const int tiles = ((M + PB_BM - 1) / PB_BM) * ((N + PB_BN - 1) / PB_BN);
+  const int want = std::max(1, (2 * PB_MIN_BLOCKS * sms + tiles - 1) / tiles);
+  chunk = (R + want - 1) / want;
+  chunk = (chunk + PB_BK - 1) / PB_BK * PB_BK;
+  S = (R + chunk - 1) / chunk;
+}
+
+// Launch plan of a chain of nl layers (1-3) and its top pass, the same for
+// the workspace query and the launch: PB_STATS (sa_stats, nl = upto) or
+// PB_POOL (sa_pool, nl = 3) after the forward passes; PB_ROUTE (sa_pool_bwd)
+// or PB_HEAD (sa_stats_bwd) between the forward and the backward passes.
+// The workspace holds xb and the nh activations that later passes read:
+// h_nl too under the stats and the head, which read it, nl - 1 under the
+// pool and the route. The stats add the Gram's chunk partials and the
+// column-sum partials of h_nl; the backwards add per layer a du slab and
+// the partials of dW and of da / db.
 struct PbPlan {
   int top, nl, nh, K1, H[3], kin[3], P[3], S[3], chunk[3];
   size_t off_x, off_h[3], off_du[3], off_pdw[3], off_pds[3], total;
@@ -839,7 +624,7 @@ struct PbPlan {
 
 static PbPlan pb_plan(int top, int nl, int R, int C, const int* H, int sms) {
   PbPlan p = {};
-  p.top = top, p.nl = nl, p.nh = top == PB_HEAD ? nl : nl - 1;
+  p.top = top, p.nl = nl, p.nh = top == PB_HEAD || top == PB_STATS ? nl : nl - 1;
   p.K1 = (C + 15) / 16 * 16;
   for (int j = 0; j < nl; ++j) {
     p.H[j] = H[j];
@@ -853,19 +638,24 @@ static PbPlan pb_plan(int top, int nl, int R, int C, const int* H, int sms) {
   };
   p.off_x = take((size_t)R * p.K1 * 2);
   for (int j = 0; j < p.nh; ++j) p.off_h[j] = take((size_t)R * H[j] * 2);
-  for (int j = 0; j < nl; ++j) p.off_du[j] = take((size_t)R * H[j] * 2);
-  for (int j = 0; j < nl; ++j) {
-    const int M = p.kin[j], N = H[j];
-    const int tiles = ((M + PB_BM - 1) / PB_BM) * ((N + PB_BN - 1) / PB_BN);
-    const int want = std::max(1, (2 * PB_MIN_BLOCKS * sms + tiles - 1) / tiles);
-    int chunk = (R + want - 1) / want;
-    chunk = (chunk + PB_BK - 1) / PB_BK * PB_BK;
-    p.chunk[j] = chunk;
-    p.S[j] = (R + chunk - 1) / chunk;
-    p.off_pdw[j] = take((size_t)p.S[j] * M * N * 4);
-    p.P[j] = j < nl - 1 ? pb_rows_p(PB_DUAL, R, N, M, H[j + 1], sms)
-                        : pb_rows_p(top, R, N, M, top == PB_HEAD ? N : 0, sms);
-    p.off_pds[j] = take((size_t)p.P[j] * 2 * N * 4);
+  const int t = nl - 1;
+  if (top == PB_POOL) {
+    p.P[t] = pb_rows_p(PB_POOL, R, H[t], p.kin[t], 0, sms);
+  } else if (top == PB_STATS) {
+    pb_split(H[t], H[t], R, sms, p.chunk[t], p.S[t]);
+    p.off_pdw[t] = take((size_t)p.S[t] * H[t] * H[t] * 4);
+    p.P[t] = pb_rows_p(PB_STATS, R, H[t], p.kin[t], 0, sms);
+    p.off_pds[t] = take((size_t)p.P[t] * H[t] * 4);
+  } else {
+    for (int j = 0; j < nl; ++j) p.off_du[j] = take((size_t)R * H[j] * 2);
+    for (int j = 0; j < nl; ++j) {
+      const int M = p.kin[j], N = H[j];
+      pb_split(M, N, R, sms, p.chunk[j], p.S[j]);
+      p.off_pdw[j] = take((size_t)p.S[j] * M * N * 4);
+      p.P[j] = j < nl - 1 ? pb_rows_p(PB_DUAL, R, N, M, H[j + 1], sms)
+                          : pb_rows_p(top, R, N, M, top == PB_HEAD ? N : 0, sms);
+      p.off_pds[j] = take((size_t)p.P[j] * 2 * N * 4);
+    }
   }
   p.total = off;
   return p;
@@ -881,14 +671,19 @@ static int pb_rows(const PbRows& a, int P, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The operands of the top pass: d_pooled and the argmax slots with their
-// ns (PB_ROUTE), or dsym [H][H] and dS [H] (PB_HEAD)
+// The operands and outputs of the top pass: d_pooled and the argmax slots
+// with their ns (PB_ROUTE), dsym [H][H] and dS [H] (PB_HEAD); the sums and
+// Gram of h_nl (PB_STATS), or pooled and arg with their ns (PB_POOL)
 struct PbTop {
   const float* dpool;
   const int* argin;
   int ns;
   const bf16* dsym;
   const float* dS;
+  float* sum;
+  float* gram;
+  float* pooled;
+  int* arg;
 };
 
 static bool pb_shapes_ok(int R, int C, int nl, const int* H, int sms) {
@@ -898,42 +693,74 @@ static bool pb_shapes_ok(int R, int C, int nl, const int* H, int sms) {
   return true;
 }
 
-// Every pass of a plan on one stream, in order: cvt, FWD, the top pass and
-// the dual passes down to layer 1, DX, then DW and the fixed-order
-// reductions per layer.
-static int pb_backward(const PbPlan& p, const PbTop& top, const float* x, int R, int C,
-                       int need_dx, const bf16* const* w, const float* const* a,
-                       const float* const* b, int sms, float* dx, float* dw, float* ds,
-                       void* ws, cudaStream_t st) {
-  const int nl = p.nl;
+// a chain's layer operands, as the entries take them
+struct PbLayers {
+  const bf16* w[3];
+  const float* a[3];
+  const float* b[3];
+};
+
+// The row pass of layer j (0-based) with its operands: in_j W_j, a_j, b_j
+static PbRows pb_layer(const PbPlan& p, const PbLayers& l, const bf16* in, int j, int R) {
+  PbRows r = {};
+  r.a1 = in, r.lda1 = p.kin[j], r.K1 = p.kin[j];
+  r.w1 = l.w[j], r.ldw1 = p.H[j];
+  r.sa = l.a[j], r.sb = l.b[j], r.M = R, r.N = p.H[j];
+  return r;
+}
+
+// Every pass of a plan on one stream, in order: cvt and FWD; then the top
+// pass and, for the stats, the Gram and the fixed-order reductions; for the
+// backwards the top pass, the dual passes down to layer 1, DX, then DW and
+// the fixed-order reductions per layer.
+static int pb_run(const PbPlan& p, const PbTop& top, const float* x, int R, int C, int need_dx,
+                  const PbLayers& l, int sms, float* dx, float* dw, float* ds, void* ws,
+                  cudaStream_t st) {
+  const int nl = p.nl, t = nl - 1;
   unsigned char* base = static_cast<unsigned char*>(ws);
   bf16* xb = reinterpret_cast<bf16*>(base + p.off_x);
   bf16 *h[3] = {}, *du[3] = {};
   const bf16* in[3] = {};
   for (int j = 0; j < nl; ++j) {
     if (j < p.nh) h[j] = reinterpret_cast<bf16*>(base + p.off_h[j]);
-    du[j] = reinterpret_cast<bf16*>(base + p.off_du[j]);
+    if (p.top == PB_ROUTE || p.top == PB_HEAD)
+      du[j] = reinterpret_cast<bf16*>(base + p.off_du[j]);
     in[j] = j ? h[j - 1] : xb;
   }
   int e;
   pb_cvt_kernel<<<8 * sms, 256, 0, st>>>(x, R, C, p.K1, xb);
   if ((e = (int)cudaGetLastError())) return e;
-  for (int j = 0; j < p.nh; ++j) {  // forward: h1, h2, ...
-    PbRows r = {};
-    r.a1 = in[j], r.lda1 = p.kin[j], r.K1 = p.kin[j];
-    r.w1 = w[j], r.ldw1 = p.H[j];
-    r.sa = a[j], r.sb = b[j], r.out = h[j], r.M = R, r.N = p.H[j];
+  const int nfwd = p.top == PB_HEAD ? nl : nl - 1;
+  for (int j = 0; j < nfwd; ++j) {  // forward: h1, h2, ...
+    PbRows r = pb_layer(p, l, in[j], j, R);
+    r.out = h[j];
     if ((e = pb_rows<PB_FWD>(r, pb_rows_p(PB_FWD, R, p.H[j], p.kin[j], 0, sms), st))) return e;
   }
-  for (int j = nl - 1; j >= 0; --j) {  // du_nl .. du_1 with da / db partials
-    PbRows r = {};
-    r.a1 = in[j], r.lda1 = p.kin[j], r.K1 = p.kin[j];
-    r.w1 = w[j], r.ldw1 = p.H[j];
-    r.sa = a[j], r.sb = b[j], r.out = du[j], r.M = R, r.N = p.H[j];
+  if (p.top == PB_POOL) {
+    PbRows r = pb_layer(p, l, in[t], t, R);
+    r.ns = top.ns, r.pooled = top.pooled, r.argout = top.arg;
+    return pb_rows<PB_POOL>(r, p.P[t], st);
+  }
+  if (p.top == PB_STATS) {
+    const int H = p.H[t];
+    float* pds = reinterpret_cast<float*>(base + p.off_pds[t]);
+    float* pdw = reinterpret_cast<float*>(base + p.off_pdw[t]);
+    PbRows r = pb_layer(p, l, in[t], t, R);
+    r.out = h[t], r.pds = pds;
+    if ((e = pb_rows<PB_STATS>(r, p.P[t], st))) return e;
+    pb_dw_kernel<<<dim3((H + PB_BN - 1) / PB_BN, (H + PB_BM - 1) / PB_BM, p.S[t]), PB_THREADS, 0,
+                   st>>>(h[t], H, h[t], H, H, H, R, p.chunk[t], pdw);
+    if ((e = (int)cudaGetLastError())) return e;
+    if ((e = st_reduce(pds, p.P[t], H, top.sum, st))) return e;
+    return st_reduce(pdw, p.S[t], H * H, top.gram, st);
+  }
+  for (int j = t; j >= 0; --j) {  // du_nl .. du_1 with da / db partials
+    PbRows r = pb_layer(p, l, in[j], j, R);
+    r.out = du[j];
     r.pds = reinterpret_cast<float*>(base + p.off_pds[j]);
-    if (j < nl - 1) {
+    if (j < t) {
       r.a2 = du[j + 1], r.lda2 = p.H[j + 1], r.K2 = p.H[j + 1];
-      r.w2 = w[j + 1], r.ldw2 = p.H[j + 1];
+      r.w2 = l.w[j + 1], r.ldw2 = p.H[j + 1];
       e = pb_rows<PB_DUAL>(r, p.P[j], st);
     } else if (p.top == PB_ROUTE) {
       r.dpool = top.dpool, r.argin = top.argin, r.ns = top.ns;
@@ -948,7 +775,7 @@ static int pb_backward(const PbPlan& p, const PbTop& top, const float* x, int R,
   if (need_dx) {
     PbRows r = {};
     r.a1 = du[0], r.lda1 = p.H[0], r.K1 = p.H[0];
-    r.w1 = w[0], r.ldw1 = p.H[0];
+    r.w1 = l.w[0], r.ldw1 = p.H[0];
     r.outf = dx, r.Nreal = C, r.M = R, r.N = p.K1;
     if ((e = pb_rows<PB_DX>(r, pb_rows_p(PB_DX, R, p.K1, p.H[0], 0, sms), st))) return e;
   }
@@ -969,6 +796,47 @@ static int pb_backward(const PbPlan& p, const PbTop& top, const float* x, int R,
   return 0;
 }
 
+extern "C" long long sv_sa_stats_ws(int R, int C, int upto, int H1, int H2, int H3, int sms) {
+  if (upto < 1 || upto > 3) return -1;
+  const int H[3] = {H1, H2, H3};
+  return (long long)pb_plan(PB_STATS, upto, R, C, H, sms).total;
+}
+
+// sum [H] and Gram [H][H] of bf16(h_upto), H = H_upto
+extern "C" int sv_sa_stats(const float* x, int R, int C, int upto, const bf16* w1, const float* a1,
+                           const float* b1, const bf16* w2, const float* a2, const float* b2,
+                           const bf16* w3, const float* a3, const float* b3, int H1, int H2,
+                           int H3, int sms, float* sum, float* gram, void* ws, void* stream) {
+  const int H[3] = {H1, H2, H3};
+  const PbLayers l = {{w1, w2, w3}, {a1, a2, a3}, {b1, b2, b3}};
+  if (!pb_shapes_ok(R, C, upto, H, sms)) return (int)cudaErrorInvalidValue;
+  PbTop top = {};
+  top.sum = sum, top.gram = gram;
+  return pb_run(pb_plan(PB_STATS, upto, R, C, H, sms), top, x, R, C, 0, l, sms, nullptr,
+                nullptr, nullptr, ws, (cudaStream_t)stream);
+}
+
+extern "C" long long sv_sa_pool_ws(int R, int C, int H1, int H2, int H3, int sms) {
+  const int H[3] = {H1, H2, H3};
+  return (long long)pb_plan(PB_POOL, 3, R, C, H, sms).total;
+}
+
+// pooled and arg [R / ns][H3]; ns divides the 64-row tile, so that no
+// center spans two tiles
+extern "C" int sv_sa_pool(const float* x, int R, int C, int ns, const bf16* w1, const float* a1,
+                          const float* b1, const bf16* w2, const float* a2, const float* b2,
+                          const bf16* w3, const float* a3, const float* b3, int H1, int H2,
+                          int H3, int sms, float* pooled, int* arg, void* ws, void* stream) {
+  const int H[3] = {H1, H2, H3};
+  const PbLayers l = {{w1, w2, w3}, {a1, a2, a3}, {b1, b2, b3}};
+  if (!pb_shapes_ok(R, C, 3, H, sms) || ns < 1 || PB_BM % ns || R % ns)
+    return (int)cudaErrorInvalidValue;
+  PbTop top = {};
+  top.ns = ns, top.pooled = pooled, top.arg = arg;
+  return pb_run(pb_plan(PB_POOL, 3, R, C, H, sms), top, x, R, C, 0, l, sms, nullptr,
+                nullptr, nullptr, ws, (cudaStream_t)stream);
+}
+
 extern "C" long long sv_sa_pool_bwd_ws(int R, int C, int H1, int H2, int H3, int sms) {
   const int H[3] = {H1, H2, H3};
   return (long long)pb_plan(PB_ROUTE, 3, R, C, H, sms).total;
@@ -981,14 +849,12 @@ extern "C" int sv_sa_pool_bwd(const float* x, int R, int C, int ns, int need_dx,
                               int sms, const float* dpool, const int* argin, float* dx,
                               float* dw, float* ds, void* ws, void* stream) {
   const int H[3] = {H1, H2, H3};
+  const PbLayers l = {{w1, w2, w3}, {a1, a2, a3}, {b1, b2, b3}};
   if (!pb_shapes_ok(R, C, 3, H, sms) || ns < 1 || R % ns) return (int)cudaErrorInvalidValue;
-  const bf16* w[3] = {w1, w2, w3};
-  const float* a[3] = {a1, a2, a3};
-  const float* b[3] = {b1, b2, b3};
   PbTop top = {};
   top.dpool = dpool, top.argin = argin, top.ns = ns;
-  return pb_backward(pb_plan(PB_ROUTE, 3, R, C, H, sms), top, x, R, C, need_dx, w, a, b, sms,
-                     dx, dw, ds, ws, (cudaStream_t)stream);
+  return pb_run(pb_plan(PB_ROUTE, 3, R, C, H, sms), top, x, R, C, need_dx, l, sms, dx,
+                dw, ds, ws, (cudaStream_t)stream);
 }
 
 extern "C" long long sv_sa_stats_bwd_ws(int R, int C, int upto, int H1, int H2, int H3,
@@ -1006,12 +872,10 @@ extern "C" int sv_sa_stats_bwd(const float* x, int R, int C, int upto, int need_
                                int H3, int sms, const bf16* dsym, const float* dS, float* dx,
                                float* dw, float* ds, void* ws, void* stream) {
   const int H[3] = {H1, H2, H3};
+  const PbLayers l = {{w1, w2, w3}, {a1, a2, a3}, {b1, b2, b3}};
   if (!pb_shapes_ok(R, C, upto, H, sms)) return (int)cudaErrorInvalidValue;
-  const bf16* w[3] = {w1, w2, w3};
-  const float* a[3] = {a1, a2, a3};
-  const float* b[3] = {b1, b2, b3};
   PbTop top = {};
   top.dsym = dsym, top.dS = dS;
-  return pb_backward(pb_plan(PB_HEAD, upto, R, C, H, sms), top, x, R, C, need_dx, w, a, b, sms,
-                     dx, dw, ds, ws, (cudaStream_t)stream);
+  return pb_run(pb_plan(PB_HEAD, upto, R, C, H, sms), top, x, R, C, need_dx, l, sms, dx,
+                dw, ds, ws, (cudaStream_t)stream);
 }

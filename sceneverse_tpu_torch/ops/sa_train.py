@@ -1,6 +1,5 @@
 """Trainable fused set abstraction: 3 x (1x1 conv -> train-mode BatchNorm ->
-ReLU) + max-pool over grouped rows, forward and backward, with the
-activations h1-h3 kept out of device memory.
+ReLU) + max-pool over grouped rows, forward and backward.
 
 Port of ``sceneverse_tpu/ops/pallas/sa_train.py``. BatchNorm rides the
 analytic fold (``fold_moments``): the batch
@@ -30,25 +29,25 @@ operands with f32 accumulation for every product, h = relu(u * a + b) in
 f32, the next layer and the moments read bf16(h), the pool takes the max of
 the f32 (unrounded) h3 and the first slot that attains it.
 
-Design on Hopper. ``sa_stats`` and ``sa_pool``: each block takes row
-tiles of TM rows (a multiple of the pool's ``ns``, so whole centers),
-recomputes the chain with ``wmma`` bf16 16x16x16 tensor-core fragments
-(weights read from device memory / L2, the row tile's bf16 activations in
-shared memory), and accumulates its sums and Gram in a partial slot of its
-own; a second launch from the same source sums the slots in a fixed order.
-``sa_stats_bwd`` and ``sa_pool_bwd`` are one chain of tiled ``mma.sync``
+Design on Hopper. All four kernels are one chain of tiled ``mma.sync``
 m16n8k16 products over the rows, one pass per layer: the bf16 activations
-and row cotangents (the values the twin rounds to bf16) go to a workspace
-the wrapper allocates; each row pass's persistent blocks keep their da / db
-column sums in registers across the row tiles they walk, and the dW pass
-splits the rows into chunks whose 64 x 64 output tiles stay in registers
-until one partial write. The two differ only in the top pass: the argmax
-routing of d_pooled, or the head ``d = dS + bf16(h) dsym`` computed beside
-``u`` in one block. The ReLU mask, the routing, the dS term and the a / b
-scaling run on the accumulator registers. No float atomics anywhere: two
-runs are bit-identical. Bound: the bf16 products at 989 TFLOP/s (about 2.5
-TFLOP per training step over the three levels) against the f32 rows read
-from device memory.
+(and, backward, the row cotangents: the values the twin rounds to bf16) go
+to a workspace the wrapper allocates; each row pass's persistent blocks
+keep their column sums in registers across the row tiles they walk, and the
+dW pass splits the rows into chunks whose 64 x 64 output tiles stay in
+registers until one partial write. They differ in the top pass:
+``sa_stats`` keeps the column sums of bf16(h_upto) over the rows < R and
+takes the Gram as a dW pass of h_upto with itself; ``sa_pool`` stages the
+f32 h3 tile in shared memory and scans each center's ``ns`` rows in slot
+order (so ``ns`` divides the 64-row tile, and h3 never reaches device
+memory); the backwards route d_pooled to the argmax slot, or form the head
+``d = dS + bf16(h) dsym`` beside ``u``. The ReLU, the mask, the routing,
+the dS term and the a / b scaling run on the accumulator registers. No
+float atomics anywhere: two runs are bit-identical. Each wrapper's launches
+run under a ``torch.profiler.record_function`` range named after it, since
+all four share the kernels' names. Bound: the bf16 products at 989
+TFLOP/s (about 2.5 TFLOP per training step over the three levels) against
+the f32 rows read from device memory.
 
 Left out: the ``axis_name`` / ``shard_map`` psum of the moments (SyncBN
 over a data-parallel mesh), which waits for the port's DDP. The grouped
@@ -67,11 +66,9 @@ import torch
 from sceneverse_tpu_torch.ops import _build
 from sceneverse_tpu_torch.ops.sa_forward import _bf16
 
-_MAX_SMEM = 227 * 1024
-_TILE_ROWS = (64, 32, 16)
-_MODES = {"stats": 0, "pool": 1}
-# device pointers after the sizes, in the order of ``sv_sa_train``
-_OUTS = ("sum", "gram", "pooled", "arg", "part_a", "part_b")
+# rows of the kernels' tiles (``PB_BM``); ``sa_pool`` takes whole centers
+# per tile
+_TILE = 64
 # row-group quantum of the TPU kernels' accumulators (``_ACC_ROWS``): the
 # shape gate of the fused route
 _ACC_ROWS = 8
@@ -151,17 +148,17 @@ def _lib():
     lib = _build.load_library("sa_train")
     if not hasattr(lib, "_bound"):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.plan_fn = _build.bind(lib, "sv_sa_train_smem",
-                                  [I, I, I, I, I, I, I])
-        lib.run_fn = _build.bind(lib, "sv_sa_train",
-                                 [I, P, I, I, I, I] + [P] * 9 + [I] * 6
-                                 + [P] * len(_OUTS) + [P])
-        lib.pool_bwd_ws_fn = _build.bind(lib, "sv_sa_pool_bwd_ws",
-                                         [I, I, I, I, I, I])
-        lib.stats_bwd_ws_fn = _build.bind(lib, "sv_sa_stats_bwd_ws",
-                                          [I, I, I, I, I, I, I])
-        for f in (lib.pool_bwd_ws_fn, lib.stats_bwd_ws_fn):
+        # workspace bytes: (R, C, [upto,] H1-H3, sms)
+        for name in ("pool", "pool_bwd", "stats", "stats_bwd"):
+            nargs = 7 if name.startswith("stats") else 6
+            f = _build.bind(lib, f"sv_sa_{name}_ws", [I] * nargs)
             f.restype = ctypes.c_longlong
+            setattr(lib, f"{name}_ws_fn", f)
+        # (x, R, C, ns | upto, 9 layer operands, H1-H3, sms, the two
+        # outputs, workspace, stream)
+        fwd_args = [P, I, I, I] + [P] * 9 + [I] * 4 + [P] * 4
+        lib.pool_fn = _build.bind(lib, "sv_sa_pool", fwd_args)
+        lib.stats_fn = _build.bind(lib, "sv_sa_stats", fwd_args)
         # (x, R, C, ns | upto, need_dx, 9 layer operands, H1-H3, sms, the
         # top pass's two operands, dx, dw, ds, workspace, stream)
         bwd_args = [P, I, I, I, I] + [P] * 9 + [I] * 4 + [P] * 6 + [P]
@@ -204,38 +201,29 @@ def _operands(name, x, params, nlayers):
     return ops + [None] * (9 - len(ops)), hs + [0] * (3 - len(hs))
 
 
-def _plan(lib, mode, x, hs, upto, ns):
-    """(rows per tile, blocks, shared-memory bytes)."""
-    R, C = x.shape
-    for tm in _TILE_ROWS:
-        if ns and tm % ns:
-            continue
-        smem = lib.plan_fn(_MODES[mode], C, upto, *hs, tm)
-        if smem <= _MAX_SMEM:
-            break
-    else:
-        raise ValueError(f"sa_{mode}: widths {hs} (ns={ns}) exceed shared "
-                         "memory at every tile height")
-    tiles = -(-R // tm)
-    blocks = min(tiles, _sm_count(x.device.index or 0)
-                 * max(1, _MAX_SMEM // smem))
-    return tm, blocks, smem
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(mode, x, ops, hs, upto, ns, plan, outs):
-    """One main launch (per-block partials) and its fixed-order reductions,
-    counted once."""
-    tm, blocks, smem = plan
-    code = _lib().run_fn(
-        _MODES[mode], x.data_ptr(), x.shape[0], x.shape[1], upto, ns,
-        *[_ptr(t) for t in ops], *hs, tm, blocks, smem,
-        *[_ptr(outs.get(k)) for k in _OUTS], _build.stream_ptr(x))
-    _build.LAUNCHES[f"sa_{mode}"] += 1
-    _build.check(code, f"sa_{mode}")
+def _call(name, fn, *args):
+    """One C entry's launches, under a profiler range named after the
+    entry, counted once."""
+    with torch.profiler.record_function(name):
+        code = fn(*args)
+    _build.LAUNCHES[name] += 1
+    _build.check(code, name)
+
+
+def _chain_fwd(name, fn, ws_bytes, x, ops, hs, arg, outs):
+    """One call of a forward chain (``sv_sa_stats`` with arg = upto,
+    ``sv_sa_pool`` with arg = ns) into ``outs``, its two outputs, with a
+    workspace of ``ws_bytes``."""
+    dev = x.device
+    ws = torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
+    _call(name, fn, x.data_ptr(), *x.shape, arg, *[_ptr(t) for t in ops],
+          *hs, _sm_count(dev.index or 0), *[t.data_ptr() for t in outs],
+          ws.data_ptr(), _build.stream_ptr(x))
+    return outs
 
 
 def sa_stats(x, params, upto):
@@ -246,21 +234,18 @@ def sa_stats(x, params, upto):
         raise ValueError(f"sa_stats: upto={upto}")
     ops, hs = _operands("sa_stats", x, params, upto)
     H = hs[upto - 1]
-    plan = tm, blocks, _ = _plan(_lib(), "stats", x, hs, upto, 0)
-    dev = x.device
-    outs = {"sum": torch.empty(H, device=dev),
-            "gram": torch.empty((H, H), device=dev),
-            "part_a": torch.empty(blocks * (tm // 16) * H, device=dev),
-            "part_b": torch.empty(blocks * H * H, device=dev)}
-    _launch("stats", x, ops, hs, upto, 0, plan, outs)
-    return outs["sum"], outs["gram"]
+    lib = _lib()
+    ws = lib.stats_ws_fn(*x.shape, upto, *hs, _sm_count(x.device.index or 0))
+    outs = (torch.empty(H, device=x.device),
+            torch.empty((H, H), device=x.device))
+    return _chain_fwd("sa_stats", lib.stats_fn, ws, x, ops, hs, upto, outs)
 
 
 def _chain_bwd(name, fn, ws_bytes, x, ops, hs, nlayers, arg, top, need_dx):
     """One call of a backward chain of ``nlayers`` layers (``sv_sa_pool_bwd``
     with arg = ns, ``sv_sa_stats_bwd`` with arg = upto; ``top``: the two
-    operands of its top pass) with a workspace of ``ws_bytes``, counted
-    once. Returns (dx or None, [(dW, da, db)] per layer)."""
+    operands of its top pass) with a workspace of ``ws_bytes``. Returns
+    (dx or None, [(dW, da, db)] per layer)."""
     dev = x.device
     R, C = x.shape
     ws = torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
@@ -268,12 +253,10 @@ def _chain_bwd(name, fn, ws_bytes, x, ops, hs, nlayers, arg, top, need_dx):
     dw = torch.empty(sum(k * h for k, h in zip(kin, hs[:nlayers])), device=dev)
     ds = torch.empty(2 * sum(hs[:nlayers]), device=dev)
     dx = torch.empty_like(x) if need_dx else None
-    code = fn(x.data_ptr(), R, C, arg, int(need_dx), *[_ptr(t) for t in ops],
-              *hs, _sm_count(dev.index or 0), *[t.data_ptr() for t in top],
-              _ptr(dx), dw.data_ptr(), ds.data_ptr(), ws.data_ptr(),
-              _build.stream_ptr(x))
-    _build.LAUNCHES[name] += 1
-    _build.check(code, name)
+    _call(name, fn, x.data_ptr(), R, C, arg, int(need_dx),
+          *[_ptr(t) for t in ops], *hs, _sm_count(dev.index or 0),
+          *[t.data_ptr() for t in top], _ptr(dx), dw.data_ptr(),
+          ds.data_ptr(), ws.data_ptr(), _build.stream_ptr(x))
     grads, ow, os_ = [], 0, 0
     for j in range(nlayers):
         k, h = kin[j], hs[j]
@@ -310,9 +293,9 @@ def _check_ns(name, x, ns):
     if ns < 1 or x.shape[0] % ns:
         raise ValueError(f"{name}: {x.shape[0]} rows are not whole centers "
                          f"of {ns}")
-    if ns % 16 or ns > _TILE_ROWS[0]:
+    if ns % 16 or ns > _TILE:
         raise ValueError(f"{name}: ns={ns} must be a multiple of 16, <= "
-                         f"{_TILE_ROWS[0]}")
+                         f"{_TILE}")
 
 
 def sa_pool(x, params, ns):
@@ -321,13 +304,16 @@ def sa_pool(x, params, ns):
         return mlp_pool_plain(x, params, ns)
     ops, hs = _operands("sa_pool", x, params, 3)
     _check_ns("sa_pool", x, ns)
+    if _TILE % ns:
+        raise ValueError(f"sa_pool: ns={ns} must divide the kernel's "
+                         f"{_TILE}-row tile (16, 32 or 64), so that no "
+                         "center spans two tiles")
     n = x.shape[0] // ns
-    outs = {"pooled": torch.empty((n, hs[2]), device=x.device),
-            "arg": torch.empty((n, hs[2]), device=x.device,
-                               dtype=torch.int32)}
-    _launch("pool", x, ops, hs, 3, ns, _plan(_lib(), "pool", x, hs, 3, ns),
-            outs)
-    return outs["pooled"], outs["arg"]
+    lib = _lib()
+    ws = lib.pool_ws_fn(*x.shape, *hs, _sm_count(x.device.index or 0))
+    outs = (torch.empty((n, hs[2]), device=x.device),
+            torch.empty((n, hs[2]), device=x.device, dtype=torch.int32))
+    return _chain_fwd("sa_pool", lib.pool_fn, ws, x, ops, hs, ns, outs)
 
 
 def sa_pool_bwd(x, params, ns, dpooled, arg, need_dx=True):

@@ -149,15 +149,25 @@ def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate, padkind):
             assert _rel(a, b) <= tol
 
 
-def _sa_train_case(dev, R, dims, seed=3):
+def _sa_train_case(dev, R, dims, seed=3, ns=0, dup=0):
+    """Rows, weights, BN scales and shifts; with ``dup``, each center's
+    ``ns`` rows are copies of ``dup`` distinct rows in a random order.
+    Returns (generator, x, params, the distinct row each slot holds or
+    None)."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn((R, dims[0]), generator=g).to(dev)
+    x = torch.randn((R, dims[0]), generator=g)
+    src = None
+    if dup:
+        src = torch.randint(0, dup, (R // ns, ns), generator=g)
+        base = x[:R // ns * dup].reshape(R // ns, dup, dims[0])
+        x = base[torch.arange(R // ns)[:, None], src].reshape(R, dims[0])
+    x = x.to(dev)
     params = tuple(
         ((torch.randn((k, h), generator=g) / math.sqrt(k)).to(dev),
          (torch.rand(h, generator=g) + 0.5).to(dev),
          (torch.randn(h, generator=g) * 0.1).to(dev))
         for k, h in zip(dims[:-1], dims[1:]))
-    return g, x, params
+    return g, x, params, src
 
 
 def _same_twice(fn):
@@ -170,26 +180,31 @@ def _same_twice(fn):
     return a
 
 
-@pytest.mark.parametrize("R,ns,dims,need_dx", [
-    (16 * 37, 16, [6, 16, 16, 32], True),            # small, ragged tiles
-    (16 * 37, 16, [259, 256, 512, 768], True),       # SA3 widths, ragged
-    (2560 * 32 * 32, 32, [6, 64, 64, 128], False),   # SA1
-    (2560 * 16 * 32, 32, [131, 128, 128, 256], True),  # SA2
-    (2560 * 16, 16, [259, 256, 512, 768], True),     # SA3
-    (2560 * 32 * 32, 32, [6, 64, 64, 128], True),    # the other need_dx
-    (2560 * 16 * 32, 32, [131, 128, 128, 256], False),
-    (2560 * 16, 16, [259, 256, 512, 768], False),
+@pytest.mark.parametrize("R,ns,dims,need_dx,dup", [
+    (16 * 37, 16, [6, 16, 16, 32], True, 0),            # small, ragged tiles
+    (16 * 37, 16, [259, 256, 512, 768], True, 0),       # SA3 widths, ragged
+    (2560 * 32 * 32, 32, [6, 64, 64, 128], False, 0),   # SA1
+    (2560 * 16 * 32, 32, [131, 128, 128, 256], True, 0),  # SA2
+    (2560 * 16, 16, [259, 256, 512, 768], True, 0),     # SA3
+    (2560 * 32 * 32, 32, [6, 64, 64, 128], True, 0),    # the other need_dx
+    (2560 * 16 * 32, 32, [131, 128, 128, 256], False, 0),
+    (2560 * 16, 16, [259, 256, 512, 768], False, 0),
+    (64 * 37, 64, [6, 16, 16, 32], True, 0),            # one center per tile
+    (16 * 37, 16, [6, 48, 80, 112], True, 0),           # column tails
+    (16 * 37, 16, [6, 16, 16, 32], True, 3),            # ties: repeated rows
 ])
-def test_sa_train_kernels_match_plain(dev, R, ns, dims, need_dx):
+def test_sa_train_kernels_match_plain(dev, R, ns, dims, need_dx, dup):
     """The four ``sa_train`` kernels within ``SA_TRAIN_TOL`` of their twins
     (dx by ``check_rows``, the argmax by ``check_argmax``), each run twice
-    and bit-identical, one launch counted per call."""
+    and bit-identical, one launch counted per call. With repeated rows in
+    each center, equal positive maxima must take the first slot that
+    holds them, as the twin and the TPU kernel do."""
     from chip_smoke import SA_TRAIN_TOL as TOL
     from chip_smoke import check_argmax, check_rows
     from sceneverse_tpu_torch.ops import _build
     from sceneverse_tpu_torch.ops import sa_train as st
 
-    g, x, params = _sa_train_case(dev, R, dims)
+    g, x, params, src = _sa_train_case(dev, R, dims, ns=ns, dup=dup)
     before = dict(_build.LAUNCHES)
     for upto in (1, 2):
         H = dims[upto]
@@ -212,6 +227,14 @@ def test_sa_train_kernels_match_plain(dev, R, ns, dims, need_dx):
     wpooled, warg = st.mlp_pool_plain(x, params, ns)
     assert _rel(pooled, wpooled) <= TOL["pooled"]
     check_argmax(f"R={R}", x, params, ns, pooled, arg, wpooled, warg)
+    if dup:
+        src = src.to(dev)
+        same = src[:, :, None] == src[:, None, :]  # (center, slot, slot)
+        first = same.int().argmax(-1)  # the first slot holding that row
+        at = arg.long()
+        assert torch.equal(first.gather(1, at), at)
+        repeated = same.sum(-1).gather(1, at) > 1
+        assert (repeated & (pooled > 0)).any()  # positive ties were taken
     dpooled = torch.randn(pooled.shape, generator=g).to(dev)
     dx, grads = _same_twice(lambda: st.sa_pool_bwd(
         x, params, ns, dpooled, arg, need_dx))
@@ -286,11 +309,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
     from sceneverse_tpu_torch.ops import sa_train as st
 
-    _, x, params = _sa_train_case(dev, 64, [6, 16, 16, 32])
+    _, x, params, _ = _sa_train_case(dev, 64, [6, 16, 16, 32])
     with pytest.raises(TypeError):  # bf16 rows
         st.sa_stats(x.to(torch.bfloat16), params, 1)
     with pytest.raises(ValueError):  # width 24, not a multiple of 16
-        _, x2, p2 = _sa_train_case(dev, 64, [6, 24, 16, 32])
+        _, x2, p2, _ = _sa_train_case(dev, 64, [6, 24, 16, 32])
         st.sa_stats(x2, p2, 1)
     with pytest.raises(ValueError):  # W1 that does not take 6 channels
         st.sa_pool(x[:, :5].contiguous(), params, 16)
@@ -298,6 +321,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         st.sa_pool(x, params, 8)
     with pytest.raises(ValueError):  # rows not whole centers
         st.sa_pool(x[:40].contiguous(), params, 16)
+    x48 = torch.cat([x, x[:32]])  # 96 rows: two centers of 48
+    with pytest.raises(ValueError, match="divide"):  # 48 does not divide 64
+        st.sa_pool(x48, params, 48)
+    # the backward routes centers that straddle its tiles: it takes ns = 48
+    z = torch.zeros((2, 32), device=dev)
+    dx48, _ = st.sa_pool_bwd(x48, params, 48, z, z.int())
+    assert dx48.shape == x48.shape and torch.isfinite(dx48).all()
     pooled, arg = st.sa_pool(x, params, 16)
     with pytest.raises(ValueError):  # argmax of another shape
         st.sa_pool_bwd(x, params, 16, pooled, arg[:2].contiguous())

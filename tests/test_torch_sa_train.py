@@ -122,6 +122,29 @@ def test_mlp_pool_and_vjp_match_jax(name, spec, rows):
         assert _rel(t, j) <= 1e-4
 
 
+def test_mlp_pool_takes_the_first_slot_on_ties_as_jax():
+    """Each center's 8 slots hold copies of 3 distinct rows, so equal
+    positive maxima are common: the twin's argmax is JAX's, the first slot
+    that holds the winning row (the semantics the CUDA ``sa_pool`` keeps,
+    held on the card by ``test_sa_train_kernels_match_plain``)."""
+    params, base = _params(SMALL), _rows(SMALL, G * M * 3)
+    src = np.random.RandomState(9).randint(0, 3, (G * M, NS))
+    x = base.reshape(G * M, 3, C)[np.arange(G * M)[:, None], src].reshape(
+        -1, C)
+    jpooled, jarg = jst._mlp_pool_fwd_impl(jnp.asarray(x).T, _jax(params),
+                                           NS, True)
+    tp = tuple(tuple(torch.from_numpy(a) for a in p) for p in params)
+    tpooled, targ = tst.mlp_pool_plain(torch.from_numpy(x), tp, NS)
+    assert _rel(tpooled, jpooled) <= 1e-5
+    assert np.array_equal(targ.numpy(), np.asarray(jarg))
+    same = src[:, :, None] == src[:, None, :]
+    arg = targ.numpy()
+    first = same.argmax(-1)  # the first slot holding each slot's row
+    assert np.array_equal(np.take_along_axis(first, arg, 1), arg)
+    repeated = np.take_along_axis(same.sum(-1), arg, 1) > 1
+    assert (repeated & (tpooled.numpy() > 0)).sum() > 0
+
+
 def test_plain_twins_repeat_the_kernels_rounding_points():
     """The twins' bf16 rounding is visible: the same chain in f32 gives
     other moments than the twin (so the parity above is not vacuous)."""
