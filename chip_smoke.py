@@ -15,8 +15,11 @@ Phases (any failure exits non-zero; nothing is caught):
      backward for the MHA kernels; timed here, never called by the port),
      and the least time the card could take (``bound_ms``). The four
      ``sa_train`` kernels run at SA1, SA2 and SA3 of the fused slice and
-     must give bit-identical outputs twice; so must ``sa_dense_pool`` (SA2
-     shapes), ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
+     must give bit-identical outputs twice; so must ``sa_group_mlp_pool``
+     (SA1, SA2) and ``sa_dense_pool`` (SA2: equal to the former bit for
+     bit), on the path's input, with empty balls and with every point in
+     every ball, each row with its in-ball pair share; ``flash_fwd`` /
+     ``flash_bwd`` (L = 50, 300, 130, with and
      without the bias ``ab``; SDPA as their library yardstick; and
      ``flash_fwd`` at L = 300 with whole trailing key tiles of pad and an
      all-pad row, whose skipped tiles must change no bit) and
@@ -147,7 +150,7 @@ SOURCES = {
                 "sceneverse_tpu/ops/pallas/sa_train.py:210"),
     "sa_pool_bwd": ("sceneverse_tpu_torch/csrc/sa_train.cu",
                     "sceneverse_tpu/ops/pallas/sa_train.py:232"),
-    "sa_dense_pool": ("sceneverse_tpu_torch/csrc/sa_dense.cu",
+    "sa_dense_pool": ("sceneverse_tpu_torch/csrc/sa_kernels.cu",
                       "sceneverse_tpu/ops/pallas/sa_forward.py:98"),
     # the library's flash-attention kernels (forward; through its custom
     # VJP the dk/dv and dq backward kernels), called here in the repo
@@ -259,13 +262,16 @@ class Table:
         self.rows = {}
 
     def add(self, name, shape, dtype, err, scale, ms, plain_ms, tol, bnd,
-            library_ms=None):
+            library_ms=None, **extra):
+        """One timed row; ``extra`` (e.g. an input's in-ball share) is
+        logged and kept beside the row, apart from its shape key."""
         rel = err / max(scale, 1e-30)
         lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        more = "".join(f" {k}={v:.4f}" for k, v in extra.items())
         log(f"[kernel] {name:18s} {shape:34s} {dtype:9s} max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} (tol {tol:g}, max|plain| {scale:.3g}) "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]})")
+            f"{bnd[0]:.4f} ms ({bnd[1]}){more}")
         if not (rel <= tol and math.isfinite(rel) and scale > 0):
             raise AssertionError(f"{name} {shape} {dtype}: rel err {rel} > {tol}")
         r = self.rows.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
@@ -273,7 +279,7 @@ class Table:
         r["shapes"].append({"shape": shape, "dtype": dtype, "max_abs_err": err,
                             "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bnd[0], "bound_by": bnd[1],
-                            "library_ms": library_ms})
+                            "library_ms": library_ms, **extra})
 
 
 def ball_counts(xyz, centers, radius):
@@ -285,6 +291,24 @@ def ball_counts(xyz, centers, radius):
     d = xyz[:, None, :, :] - centers[:, :, None, :]
     d2 = _sq3(d[..., 0], d[..., 1], d[..., 2])
     return (d2 < torch.tensor(radius * radius, dtype=torch.float32)).sum(-1)
+
+
+def sa_pairs(xyz, centers, radius, ns):
+    """(pairs, points) of the SA function on this input: the (center,
+    point) pairs it pools -- each center's first min(ns, N) in-ball points
+    (strict d2 < r^2) in index order, point 0 for an empty ball -- and the
+    distinct points those pairs use."""
+    import torch
+
+    from sceneverse_tpu_torch.ops.pointops import _sq3
+
+    d = xyz[:, None, :, :] - centers[:, :, None, :]
+    within = _sq3(d[..., 0], d[..., 1], d[..., 2]) < torch.tensor(
+        radius * radius, dtype=torch.float32)
+    del d
+    take = within & (within.cumsum(-1) <= ns)
+    take[..., 0] |= ~within.any(-1)
+    return int(take.sum()), int(take.any(1).sum())
 
 
 def fps_bound(G, N, m):
@@ -328,53 +352,54 @@ def phase_sa(table):
         ops = sa.prepare_weights(*[w.to(dev) for w in ws])
         centers = got_xyz.clone()
         centers[:8] += 5.0  # objects whose balls are all empty
-        for label, ctr in (("", got_xyz), (" +empty", centers)):
-            got = sa.sa_group_mlp_pool(pts, ctr, *ops, radius=r, nsample=ns)
-            want = sa.sa_group_mlp_pool_plain(pts, ctr, *ops, radius=r,
-                                              nsample=ns)
-            # the MLP runs once per distinct (center, in-ball point) pair,
-            # an empty ball once on point 0; bf16 operands
-            cnt = ball_counts(xyz, ctr, r).clamp_min(1)
-            pairs = int((cnt if ns >= N else cnt.clamp_max(ns)).sum())
-            flops = 2 * pairs * sum(a * b for a, b in zip(spec[:-1], spec[1:]))
-            bnd = bound(nbytes(pts, ctr, want, *ops), flops, "bf16")
-            table.add("sa_group_mlp_pool", tag + label, "f32",
-                      *_err(got, want),
-                      cuda_ms(lambda: sa.sa_group_mlp_pool(
-                          pts, ctr, *ops, radius=r, nsample=ns)),
-                      cuda_ms(lambda: sa.sa_group_mlp_pool_plain(
-                          pts, ctr, *ops, radius=r, nsample=ns), reps=3),
-                      SA_TOL, bnd)
-        if ns >= N:  # SA2: the dense stage of the SA2_BATCHED route
-            for label, ctr in (("", got_xyz), (" +empty", centers)):
-                check_sa_dense(table, tag + label, pts, ctr, ops, r, spec)
+        # (label, centers, radius): the path's input, empty balls, and every
+        # point in every ball (the most rows the compaction can leave)
+        for label, ctr, rad in (("", got_xyz, r), (" +empty", centers, r),
+                                (" +all-in", got_xyz, 16.0)):
+            entries = [("sa_group_mlp_pool", sa.sa_group_mlp_pool,
+                        sa.sa_group_mlp_pool_plain, {"nsample": ns})]
+            if ns >= N:  # SA2: the dense stage of the SA2_BATCHED route
+                entries.append(("sa_dense_pool", sa.sa_dense_pool,
+                                sa.sa_dense_pool_plain, {}))
+            outs = [check_sa_fwd(table, name, tag + label, fn, plain, pts,
+                                 ctr, ops, rad, ns, spec, kw)
+                    for name, fn, plain, kw in entries]
+            if len(outs) == 2 and not torch.equal(*outs):
+                raise AssertionError(f"sa_dense_pool {tag}{label}: not the "
+                                     "dense branch of sa_group_mlp_pool")
+            if not label:
+                got = outs[0]
         # next level consumes this level's output, as PointNetPP does
         pts = torch.cat([got_xyz, got], -1).contiguous()
 
 
-def check_sa_dense(table, tag, pts, ctr, ops, r, spec):
-    """``sa_dense_pool`` twice (bit-identical) and against its twin."""
+def check_sa_fwd(table, name, tag, fn, plain, pts, ctr, ops, r, ns, spec,
+                 kw):
+    """One SA entry twice (bit-identical) and against its twin, with its
+    input's in-ball pair share. Bound, bf16 operands: layer 1's product
+    once per point a pair uses and its centering term once per center,
+    layers 2-3 once per pair (``sa_pairs``: in-ball pairs, an empty ball
+    once on point 0); each input read once and ``pooled`` written once.
+    Returns the output."""
     import torch
 
-    from sceneverse_tpu_torch.ops import sa_forward as sa
-
-    got = sa.sa_dense_pool(pts, ctr, *ops, radius=r)
-    if not torch.equal(got, sa.sa_dense_pool(pts, ctr, *ops, radius=r)):
-        raise AssertionError(f"sa_dense_pool {tag}: two runs differ")
-    want = sa.sa_dense_pool_plain(pts, ctr, *ops, radius=r)
-    G, N, C = pts.shape
+    G, N, _ = pts.shape
     m = ctr.shape[1]
-    # every (center, point) pair through layers 2-3, each point through
-    # layer 1 once, the centering term once per center; bf16 operands
-    flops = 2 * G * (m * N * (spec[1] * spec[2] + spec[2] * spec[3])
-                     + N * C * spec[1] + m * 3 * spec[1])
-    table.add("sa_dense_pool", tag, "f32", *_err(got, want),
-              cuda_ms(lambda: sa.sa_dense_pool(pts, ctr, *ops, radius=r)),
-              cuda_ms(lambda: sa.sa_dense_pool_plain(pts, ctr, *ops,
-                                                     radius=r), reps=3),
-              SA_TOL, bound(nbytes(pts, ctr, want, *ops), flops, "bf16"))
-    del got, want
+    got = fn(pts, ctr, *ops, radius=r, **kw)
+    if not torch.equal(got, fn(pts, ctr, *ops, radius=r, **kw)):
+        raise AssertionError(f"{name} {tag}: two runs differ")
+    want = plain(pts, ctr, *ops, radius=r, **kw)
+    pairs, points = sa_pairs(pts[..., :3], ctr, r, ns)
+    c, h1, h2, h3 = spec
+    flops = 2 * (points * c * h1 + G * m * 3 * h1 + pairs * (h1 * h2 + h2 * h3))
+    table.add(name, tag, "f32", *_err(got, want),
+              cuda_ms(lambda: fn(pts, ctr, *ops, radius=r, **kw)),
+              cuda_ms(lambda: plain(pts, ctr, *ops, radius=r, **kw), reps=3),
+              SA_TOL, bound(nbytes(pts, ctr, want, *ops), flops, "bf16"),
+              in_ball=pairs / (G * m * min(ns, N)))
+    del want
     torch.cuda.empty_cache()
+    return got
 
 
 def phase_flash(table):
@@ -1067,8 +1092,10 @@ def main():
         row = table.rows[name]
         # headline: the heaviest call shape of the main path, f32 where the
         # kernel has an f32 form (no GPS caller passes flash attention a
-        # bias, so the "+ab" shapes are not main-path shapes)
-        shapes = [r for r in row["shapes"] if "+ab" not in r["shape"]]
+        # bias, and the SA rows' "+all-in" balls hold every point: neither
+        # is a main-path input)
+        shapes = [r for r in row["shapes"]
+                  if "+ab" not in r["shape"] and "+all-in" not in r["shape"]]
         head = max([r for r in shapes if r["dtype"] == "f32"] or shapes,
                    key=lambda r: r["ms"])
         by_path = {p: s["launches"].get(name, 0) for p, s in slices.items()}

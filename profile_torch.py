@@ -20,8 +20,9 @@ the profiler, device kernel time per step, the device busy share of both,
 the host calls that wait on the device (synchronisations, allocations,
 copies), the device time by kernel family (this port's kernels, GEMMs,
 elementwise and reduction kernels (BatchNorm, ReLU, LayerNorm, GELU),
-other) and, for the ``sa_train`` kernels, by entry (the device span of
-each wrapper's ``record_function`` range); writes the torch.profiler
+other) and, for the kernels that several entries share (``sa_train``'s,
+``sv_sa_fwd_kernel``), by entry (the device span of each wrapper's
+``record_function`` range); writes the torch.profiler
 tables, by device and by host time, to
 ``profile_<frozen|unfrozen>[_fused][_exact][_eval]_<amp>.txt`` in ``OUT_DIR``.
 Imports nothing of JAX or of the JAX package.
@@ -47,10 +48,12 @@ _HOST_WAITS = ("Synchronize", "cudaMalloc", "cudaFree", "cudaMemcpy")
 
 _SA_TRAIN = ("st_reduce_kernel", "pb_rows_kernel", "pb_dw_kernel",
              "pb_cvt_kernel")
-# the sa_train wrappers' profiler ranges: their kernels share the names above
-_SA_ENTRIES = ("sa_stats", "sa_pool", "sa_stats_bwd", "sa_pool_bwd")
-_PORT = ("mha_fwd", "mha_bwd", "sa_group", "sa_dense", "ball_group", "fps",
-         "fa_fwd", "fa_dkv", "fa_dq")
+# the wrappers' profiler ranges: the sa_train entries share the kernels
+# above, sa_group_mlp_pool and sa_dense_pool share sv_sa_fwd_kernel
+_SA_ENTRIES = ("sa_stats", "sa_pool", "sa_stats_bwd", "sa_pool_bwd",
+               "sa_group_mlp_pool", "sa_dense_pool")
+_PORT = ("mha_fwd", "mha_bwd", "sa_fwd", "ball_group", "fps", "fa_fwd",
+         "fa_dkv", "fa_dq")
 
 
 def family(name: str) -> str:
@@ -126,7 +129,7 @@ def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
         for t, n in sorted(items, reverse=True)[:3]:
             print(f"[profile {tag} {amp}]       {t / steps / 1e3:8.2f} ms  {n[:90]}")
     for k, (us, n) in sorted(entries.items()):
-        print(f"[profile {tag} {amp}]   sa_train entry {k:12s} "
+        print(f"[profile {tag} {amp}]   entry {k:17s} "
               f"{us / steps / 1e3:8.2f} ms/step on the device, "
               f"{n / steps:.0f} calls/step")
     for e in prof.key_averages():  # host calls that wait on the device

@@ -3,8 +3,8 @@ SharedMLP (eval BatchNorm folded) + max-pool.
 
 Port of ``sceneverse_tpu/ops/pallas/sa_forward.py::fused_sa_forward``
 (TPU kernel ``_kernel`` with ``_fps_inline``, and ``_fps_kernel(_t)`` for
-``split_fps``, and ``_kernel_dense_batched`` for ``dense_batched``). Three
-hand-written CUDA kernels (``csrc/sa_kernels.cu``, ``csrc/sa_dense.cu``):
+``split_fps``, and ``_kernel_dense_batched`` for ``dense_batched``). Two
+hand-written CUDA kernels (``csrc/sa_kernels.cu``):
 
 ``fps``
     replaces ``_fps_inline`` / ``_fps_kernel_t``. One block per object, the
@@ -14,26 +14,41 @@ hand-written CUDA kernels (``csrc/sa_kernels.cu``, ``csrc/sa_dense.cu``):
     step), not bytes or FLOPs; the design keeps every step on-chip and runs
     all objects' chains in parallel, one per block.
 
-``sa_group_mlp_pool``
-    replaces the body of ``_kernel`` (selection branch for SA1, dense branch
-    nsample >= N for SA2). One block per object: a warp per center scans the
-    points with ``__ballot_sync`` to list the first ``nsample`` in-ball
-    points (an empty ball lists point 0), the (center, point) pairs are
-    compacted, and chunks of 32 pairs run layer 1 (the w1-fold
-    ``bf16(bf16(p) @ w1) - bf16(c) @ w1[:3]``), layers 2-3 (bf16 operands,
-    f32 accumulation) and the max-pool (``atomicMax`` on the non-negative
-    post-ReLU bits) in shared memory. The grouped tensor never reaches
-    device memory; only the pooled (G, m, H3) is written. Bound: the MLP's
-    multiply-adds on the CUDA cores (no tensor cores yet; wgmma is later
-    work), fed by shared-memory broadcasts of the activations.
+``sa_group_mlp_pool`` and ``sa_dense_pool`` (one kernel, ``sv_sa_fwd``)
+    replace the body of ``_kernel`` (selection branch nsample < N for SA1,
+    dense branch nsample >= N for SA2) and ``_kernel_dense_batched`` (the
+    SA2 dense stage of the ``SCENEVERSE_SA2_BATCHED`` route), which compute
+    the same function: ``sa_dense_pool`` is the dense branch. Persistent
+    blocks (one wave: SMs x blocks per SM; 8 warps, 2 per SM at SA1
+    widths, 16 warps, 1 per SM at SA2) walk the objects. Bound: the bf16
+    products of the in-ball pairs, or the points read; on the card the
+    per-object phases (staging, ball query, barriers) weigh as much.
 
-``sa_dense_pool`` (``csrc/sa_dense.cu``)
-    replaces ``_kernel_dense_batched``, the SA2 dense stage of the
-    ``SCENEVERSE_SA2_BATCHED`` route: every one of an object's m*N (center,
-    point) pairs through the MLP, no compaction, then the masked max over
-    the points (an empty ball takes pair (c, 0)). One block per object;
-    layers 2-3 on tensor cores (wmma bf16 fragments, f32 accumulation).
-    Bound: the bf16 products. Design notes in the source.
+    * weights: w2 and w3 (bf16, 8 + 16 KB at SA1, 32 + 64 KB at SA2) go to
+      shared memory once per block with ``cp.async``, not once per tile.
+    * pairs: a warp scans the object's staged points for up to 4 centers
+      at once with ``__ballot_sync`` and lists each one's first
+      ``min(nsample, N)`` in-ball points (strict d2 < r^2) in index order;
+      an empty ball lists point 0. The lists are compacted center-major:
+      only in-ball pairs reach the MLP.
+    * layer 1 (the w1-fold; each branch's affine bit for bit with
+      ``__fmul_rn`` / ``__fadd_rn`` on the CUDA cores): the dense branch
+      ``relu(a1 (pw - cw) + b1)``, the selection branch ``relu(a1 pw + (b1
+      - a1 cw))``; cw = bf16(c) @ w1[:3] once per center; pw = bf16(bf16(p)
+      @ w1) once per point from one ``mma.sync`` product where the table
+      fits (SA2, C = 131), else per pair as an f32 FMA chain (SA1, C = 6);
+      h1 goes to shared memory as bf16 in the A layout of ``ldmatrix``.
+    * layers 2-3 on the tensor cores: 64-row tiles, 2 rows of warps of 32
+      rows, 32 columns of layer 3 (16 of layer 2) a warp,
+      ``mma.sync.m16n8k16`` bf16 with f32 accumulators in registers; u a +
+      b and ReLU on the accumulators; h2 rounds to bf16 into shared memory.
+    * pool from the registers: the f32 h3 of a warp's 8-row slots (the
+      rows g of mma's C fragment) whose rows all hold one center merge in
+      registers, a butterfly of shuffles takes the max over the slot's
+      rows, then one shared ``atomicMax`` per value on the bits of the
+      non-negative float; a slot of several centers sends each row to its
+      own center. The max is order-free: two runs are bit-identical. The
+      pooled (G, m, H3) is written once per object.
 
 Numerics are the TPU kernel's, not a float32 XLA pipeline's: weights are
 cast to bf16, per-point layer-1 projections round to bf16, activations round
@@ -54,7 +69,6 @@ from sceneverse_tpu_torch.ops.pointops import (_sq3, ball_query,
 
 _SUPPORTED_WIDTHS = ((64, 64, 128), (128, 128, 256))
 _MAX_SMEM = 227 * 1024
-_PAIR_CHUNK = 32
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -143,9 +157,10 @@ def _lib():
     if not hasattr(lib, "_bound"):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fps_fn = _build.bind(lib, "sv_fps", [P, I, I, I, P, P, P])
-        lib.group_fn = _build.bind(
-            lib, "sv_sa_group_mlp_pool",
-            [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P])
+        lib.smem_fn = _build.bind(lib, "sv_sa_fwd_smem", [I] * 7)
+        lib.sa_fn = _build.bind(
+            lib, "sv_sa_fwd",
+            [P] * 12 + [I, I, I, I, I, I, F, P])
         lib._bound = True
     return lib
 
@@ -172,13 +187,6 @@ def fps(xyz: torch.Tensor, npoint: int):
     return new_xyz, idx
 
 
-def sa_group_smem_bytes(N, C, m, nsample, hs) -> int:
-    h1, h2, h3 = hs
-    floats = ((N * C + 3) // 4) * 4 + m * h1 + _PAIR_CHUNK * (h1 + h2) + m * h3
-    ints = m * nsample * 2 + 2 * m + 1
-    return 4 * (floats + ints)
-
-
 def _check_sa(name, pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3):
     """Raise unless the operands are what the SA kernels take; returns
     (G, N, C, m, (H1, H2, H3))."""
@@ -203,83 +211,63 @@ def _check_sa(name, pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3):
     return G, N, C, m, hs
 
 
+def _sa_fwd(name, pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
+            radius, nsample):
+    """Launch ``sv_sa_fwd`` for the entry ``name``, counted once and under
+    a profiler range of that name, since both entries share the kernel."""
+    G, N, C, m, hs = _check_sa(name, pts, centers, w1n, a1, b1, w2n, a2, b2,
+                               w3n, a3, b3)
+    if hs not in _SUPPORTED_WIDTHS:
+        raise ValueError(f"{name}: widths {hs} not instantiated (supported "
+                         f"{_SUPPORTED_WIDTHS})")
+    if not (1 <= N <= 65535 and m <= 32767 and nsample >= 1):
+        raise ValueError(f"{name}: N={N}, m={m} or nsample={nsample} out of "
+                         "range")
+    if any(w.data_ptr() % 16 for w in (w1n, w2n, w3n)):
+        raise ValueError(f"{name}: weights must be 16-byte aligned")
+    lib = _lib()
+    smem = lib.smem_fn(N, C, m, nsample, *hs)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: {smem} B of shared memory needed, the card "
+                         f"has {_MAX_SMEM}")
+    pooled = torch.empty((G, m, hs[2]), device=pts.device,
+                         dtype=torch.float32)
+    if G == 0:
+        return pooled
+    with torch.profiler.record_function(name):
+        code = lib.sa_fn(
+            pts.data_ptr(), centers.data_ptr(),
+            w1n.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+            w2n.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+            w3n.data_ptr(), a3.data_ptr(), b3.data_ptr(),
+            pooled.data_ptr(), G, N, C, m, nsample, hs[0],
+            float(radius * radius), _build.stream_ptr(pts))
+    _build.LAUNCHES[name] += 1
+    _build.check(code, name)
+    return pooled
+
+
 def sa_group_mlp_pool(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
                       radius: float, nsample: int):
     """Ball query + grouping + 3-layer folded MLP + max-pool per center."""
     if not pts.is_cuda:
         return sa_group_mlp_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2,
                                        w3n, a3, b3, radius, nsample)
-    G, N, C, m, hs = _check_sa("sa_group_mlp_pool", pts, centers, w1n, a1,
-                               b1, w2n, a2, b2, w3n, a3, b3)
-    if hs not in _SUPPORTED_WIDTHS:
-        raise ValueError(f"sa_group_mlp_pool: widths {hs} not instantiated "
-                         f"(supported {_SUPPORTED_WIDTHS})")
-    if N > 65535 or nsample < 1:
-        raise ValueError("sa_group_mlp_pool: N or nsample out of range")
-    smem = sa_group_smem_bytes(N, C, m, nsample, hs)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"sa_group_mlp_pool: {smem} B of shared memory "
-                         f"needed, the card has {_MAX_SMEM}")
-    pooled = torch.empty((G, m, hs[2]), device=pts.device,
-                         dtype=torch.float32)
-    if G == 0:
-        return pooled
-    code = _lib().group_fn(
-        pts.data_ptr(), centers.data_ptr(),
-        w1n.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-        w2n.data_ptr(), a2.data_ptr(), b2.data_ptr(),
-        w3n.data_ptr(), a3.data_ptr(), b3.data_ptr(),
-        pooled.data_ptr(), G, N, C, m, nsample, int(nsample >= N), hs[0],
-        float(radius * radius), smem, _build.stream_ptr(pts))
-    _build.LAUNCHES["sa_group_mlp_pool"] += 1
-    _build.check(code, "sa_group_mlp_pool")
-    return pooled
-
-
-def _dense_lib():
-    lib = _build.load_library("sa_dense")
-    if not hasattr(lib, "_bound"):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.smem_fn = _build.bind(lib, "sv_sa_dense_smem", [I] * 6)
-        lib.dense_fn = _build.bind(
-            lib, "sv_sa_dense_pool",
-            [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P])
-        lib._bound = True
-    return lib
+    return _sa_fwd("sa_group_mlp_pool", pts, centers, w1n, a1, b1, w2n, a2,
+                   b2, w3n, a3, b3, radius, nsample)
 
 
 def sa_dense_pool(pts, centers, w1n, a1, b1, w2n, a2, b2, w3n, a3, b3,
                   radius: float):
-    """Dense SA stage: every (center, point) pair through the folded MLP,
-    the max over the in-ball points, pair (c, 0) for an empty ball.
-    Operands as ``sa_group_mlp_pool``; widths must be multiples of 16."""
+    """Dense SA stage: every in-ball (center, point) pair through the folded
+    MLP, the max over them, pair (c, 0) for an empty ball: the dense branch
+    of ``sa_group_mlp_pool`` (nsample = N), which it equals bit for bit.
+    Operands as there."""
     if not pts.is_cuda:
         return sa_dense_pool_plain(pts, centers, w1n, a1, b1, w2n, a2, b2,
                                    w3n, a3, b3, radius)
-    G, N, C, m, hs = _check_sa("sa_dense_pool", pts, centers, w1n, a1, b1,
-                               w2n, a2, b2, w3n, a3, b3)
-    if any(h % 16 for h in hs):
-        raise ValueError(f"sa_dense_pool: widths {hs} must be multiples of "
-                         "16 (tensor-core fragments)")
-    pooled = torch.empty((G, m, hs[2]), device=pts.device,
-                         dtype=torch.float32)
-    if G == 0:
-        return pooled
-    lib = _dense_lib()
-    smem = lib.smem_fn(N, C, m, *hs)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"sa_dense_pool: {smem} B of shared memory needed, "
-                         f"the card has {_MAX_SMEM}")
-    code = lib.dense_fn(
-        pts.data_ptr(), centers.data_ptr(),
-        w1n.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-        w2n.data_ptr(), a2.data_ptr(), b2.data_ptr(),
-        w3n.data_ptr(), a3.data_ptr(), b3.data_ptr(),
-        pooled.data_ptr(), G, N, C, m, *hs, float(radius * radius),
-        _build.stream_ptr(pts))
-    _build.LAUNCHES["sa_dense_pool"] += 1
-    _build.check(code, "sa_dense_pool")
-    return pooled
+    return _sa_fwd("sa_dense_pool", pts, centers, w1n, a1, b1, w2n, a2, b2,
+                   w3n, a3, b3, radius, pts.shape[1])
 
 
 def prepare_weights(w1, s1, w2, s2, w3, s3):

@@ -13,9 +13,10 @@ ball_group's grouped rows exactly equal (the same gather, bf16 rounding and
 f32 subtraction on both sides); mha_fwd / mha_bwd bit-identical over two
 runs, f32 (3xTF32 products) within 1e-4 and bf16 within 2e-2; sa_train: the tolerances of chip_smoke.py's
 SA_TRAIN_TOL (its comment gives the reasons), argmax equal but at
-near-ties, and every kernel bit-identical over two runs; sa_dense_pool and
-the flash kernels bit-identical over two runs, sa_dense_pool within the SA
-1e-2, flash_fwd / flash_bwd within 2e-2 (bf16 outputs); the exact-mode
+near-ties, and every kernel bit-identical over two runs; sa_group_mlp_pool,
+sa_dense_pool (one kernel; the latter equal to the former's dense branch bit
+for bit) and the flash kernels bit-identical over two runs, the SA entries
+within the SA 1e-2, flash_fwd / flash_bwd within 2e-2 (bf16 outputs); the exact-mode
 model forward on the card within 3e-2 of the same forward on the CPU
 (flash and SA outputs rounded to bf16 at the same points, sums in another
 order, through 2-layer towers)."""
@@ -42,38 +43,100 @@ def _rel(a, b):
             / b.float().abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("N,C,m,ns,r,spec", [
-    (256, 6, 32, 32, 0.2, [6, 64, 64, 128]),
-    (32, 131, 16, 32, 0.4, [131, 128, 128, 256]),
-])
-def test_sa_kernels_match_plain(dev, N, C, m, ns, r, spec):
-    from sceneverse_tpu_torch.ops import _build
+SA_LEVELS = {  # N, C, m, nsample, radius, widths
+    "SA1": (1024, 6, 32, 32, 0.2, [6, 64, 64, 128]),
+    "SA2": (32, 131, 16, 32, 0.4, [131, 128, 128, 256]),
+}
+
+
+def _sa_case(dev, level, G, seed=0):
+    """Unit-cube objects with near-origin pad points and random folded
+    weights at one SA level's widths: (pts, kernel operands)."""
     from sceneverse_tpu_torch.ops import sa_forward as sa
 
-    g = torch.Generator().manual_seed(0)
-    pts = torch.rand((48, N, C), generator=g) - 0.5
+    N, C, _, _, _, spec = SA_LEVELS[level]
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.rand((G, N, C), generator=g) - 0.5
     pts[:, -5:, :3] = 0.0
-    pts = pts.to(dev)
     ws = []
     for cin, h in zip(spec[:-1], spec[1:]):
         ws += [torch.randn((h, cin), generator=g) / math.sqrt(cin),
                torch.stack([torch.rand(h, generator=g) + 0.5,
                             torch.randn(h, generator=g) * 0.1], 1)]
-    ops = sa.prepare_weights(*[w.to(dev) for w in ws])
-    before = dict(_build.LAUNCHES)
-    xyz, idx = sa.fps(pts[..., :3].contiguous(), m)
-    xyz_ref, idx_ref = sa.fps_plain(pts[..., :3].contiguous(), m)
-    assert torch.equal(idx, idx_ref) and torch.equal(xyz, xyz_ref)
-    ctr = xyz.clone()
-    ctr[:4] += 5.0  # empty balls
-    got = sa.sa_group_mlp_pool(pts, ctr, *ops, radius=r, nsample=ns)
-    want = sa.sa_group_mlp_pool_plain(pts, ctr, *ops, radius=r, nsample=ns)
-    torch.cuda.synchronize()
-    assert want.abs().max() > 0
-    assert _rel(got, want) <= 1e-2
-    assert _build.LAUNCHES["fps"] == before.get("fps", 0) + 1
-    assert (_build.LAUNCHES["sa_group_mlp_pool"]
-            == before.get("sa_group_mlp_pool", 0) + 1)
+    return pts.to(dev), sa.prepare_weights(*[w.to(dev) for w in ws])
+
+
+def _pair_rows(pts, ctr, r, ns):
+    """(G, m) rows the kernel gives each center: its first min(ns, N)
+    in-ball points, one for an empty ball."""
+    from sceneverse_tpu_torch.ops.pointops import _sq3
+
+    d = pts[:, None, :, :3] - ctr[:, :, None, :]
+    d2 = _sq3(d[..., 0], d[..., 1], d[..., 2])
+    cnt = (d2 < torch.tensor(r * r, dtype=torch.float32)).sum(-1)
+    return cnt.clamp(1, min(ns, pts.shape[1]))
+
+
+@pytest.mark.parametrize("case", ["plain", "wide", "empty", "all_in", "G1",
+                                  "ragged_grid"])
+@pytest.mark.parametrize("level", ["SA1", "SA2"])
+def test_sa_kernels_match_plain(dev, level, case):
+    """``fps`` equal to its twin; both SA entries (one kernel) against
+    their twins, bit-identical over two runs, ``sa_dense_pool`` equal to
+    ``sa_group_mlp_pool``'s dense branch bit for bit: the path's input
+    (SA1 balls hold more points than nsample; 8-row slots of several
+    centers), 1.5x its radius (a center's rows span two 64-row tiles), an
+    object whose balls are all empty, every point in every ball
+    (m * min(ns, N) rows, slots of one center), one object, and a G that is
+    no multiple of the persistent grid."""
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    N, C, m, ns, r, spec = SA_LEVELS[level]
+    # 531: above the persistent grid (an H100's 132 SMs x 1 or 2 blocks)
+    # and a multiple of neither 132 nor 264
+    G = {"G1": 1, "ragged_grid": 531}.get(case, 48)
+    pts, ops = _sa_case(dev, level, G)
+    before = _build.LAUNCHES["fps"]
+    ctr, idx = sa.fps(pts[..., :3].contiguous(), m)
+    ctr_ref, idx_ref = sa.fps_plain(pts[..., :3].contiguous(), m)
+    assert torch.equal(idx, idx_ref) and torch.equal(ctr, ctr_ref)
+    assert _build.LAUNCHES["fps"] == before + 1
+    if case == "empty":
+        ctr[0] += 5.0  # every ball of object 0 empty
+        ctr[1, :3] += 5.0
+    if case == "all_in":
+        r = 16.0
+    if case == "wide":
+        r = 1.5 * r
+    rows = _pair_rows(pts, ctr, r, ns)
+    end = rows.cumsum(1)
+    if case == "wide":
+        assert ((end - rows) // 64 != (end - 1) // 64).any()  # spans tiles
+    if case == "plain":
+        assert ((end - rows) // 8 != (end - 1) // 8).any()  # mixed slots
+        if level == "SA1":
+            assert (_pair_rows(pts, ctr, r, N) >= ns).any()  # truncated balls
+    if case == "all_in":
+        assert (rows == min(ns, N)).all()
+    entries = [("sa_group_mlp_pool", sa.sa_group_mlp_pool,
+                sa.sa_group_mlp_pool_plain, {"nsample": ns})]
+    if ns >= N:
+        entries.append(("sa_dense_pool", sa.sa_dense_pool,
+                        sa.sa_dense_pool_plain, {}))
+    outs = []
+    for name, fn, plain, kw in entries:
+        before = _build.LAUNCHES[name]
+        got = fn(pts, ctr, *ops, radius=r, **kw)
+        again = fn(pts, ctr, *ops, radius=r, **kw)
+        want = plain(pts, ctr, *ops, radius=r, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == before + 2
+        assert torch.equal(got, again)
+        assert want.abs().max() > 0 and _rel(got, want) <= 1e-2
+        outs.append(got)
+    if len(outs) == 2:
+        assert torch.equal(*outs)
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -340,21 +403,33 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         st.sa_stats_bwd(x, params, 1, torch.zeros(8, device=dev),
                         torch.zeros((16, 16), device=dev))
 
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    pts, ops = _sa_case(dev, "SA1", 2)
+    ctr = pts[:, :32, :3].contiguous()
+    w2, w3 = ops[3], ops[6]
+    narrow = list(ops)
+    narrow[6], narrow[7], narrow[8] = (w3[:, :64].contiguous(),
+                                       ops[7][:64].contiguous(),
+                                       ops[8][:64].contiguous())
+    with pytest.raises(ValueError, match="not instantiated"):  # (64, 64, 64)
+        sa.sa_group_mlp_pool(pts, ctr, *narrow, radius=0.2, nsample=32)
+    with pytest.raises(ValueError, match="not instantiated"):
+        sa.sa_dense_pool(pts[:, :32].contiguous(), ctr, *narrow, radius=0.2)
+    with pytest.raises(ValueError, match="shared memory"):  # 1024-point lists
+        sa.sa_dense_pool(pts, ctr, *ops, radius=0.2)
+    with pytest.raises(TypeError):  # f32 weights
+        sa.sa_group_mlp_pool(pts, ctr, ops[0], *ops[1:3], w2.float(),
+                             *ops[4:], radius=0.2, nsample=32)
+
 
 @pytest.mark.parametrize("G", [48, 2560])  # small; SA2 of the GPS slice
 def test_sa_dense_pool_matches_plain(dev, G):
     from sceneverse_tpu_torch.ops import _build
     from sceneverse_tpu_torch.ops import sa_forward as sa
 
-    g = torch.Generator().manual_seed(5)
-    N, C, m, r, spec = 32, 131, 16, 0.4, [131, 128, 128, 256]
-    pts = (torch.rand((G, N, C), generator=g) - 0.5).to(dev)
-    ws = []
-    for cin, h in zip(spec[:-1], spec[1:]):
-        ws += [torch.randn((h, cin), generator=g) / math.sqrt(cin),
-               torch.stack([torch.rand(h, generator=g) + 0.5,
-                            torch.randn(h, generator=g) * 0.1], 1)]
-    ops = sa.prepare_weights(*[w.to(dev) for w in ws])
+    N, _, m, _, r, _ = SA_LEVELS["SA2"]
+    pts, ops = _sa_case(dev, "SA2", G, seed=5)
     ctr, _ = sa.fps(pts[..., :3].contiguous(), m)
     ctr[:3] += 5.0  # empty balls: pair (c, 0)
     before = _build.LAUNCHES["sa_dense_pool"]
@@ -365,9 +440,9 @@ def test_sa_dense_pool_matches_plain(dev, G):
     assert _build.LAUNCHES["sa_dense_pool"] == before + 2
     assert torch.equal(got, again)
     assert want.abs().max() > 0 and _rel(got, want) <= 1e-2
-    # the same function as the dense branch of sa_group_mlp_pool
-    other = sa.sa_group_mlp_pool(pts, ctr, *ops, radius=r, nsample=32)
-    assert _rel(got, other) <= 1e-2
+    # the dense branch of sa_group_mlp_pool: the same kernel, the same bits
+    other = sa.sa_group_mlp_pool(pts, ctr, *ops, radius=r, nsample=N)
+    assert torch.equal(got, other)
 
 
 @pytest.mark.parametrize("use_ab", [False, True])
