@@ -18,8 +18,13 @@ Phases (any failure exits non-zero; nothing is caught):
      must give bit-identical outputs twice; so must ``sa_group_mlp_pool``
      (SA1, SA2) and ``sa_dense_pool`` (SA2: equal to the former bit for
      bit), on the path's input, with empty balls and with every point in
-     every ball, each row with its in-ball pair share; ``flash_fwd`` /
-     ``flash_bwd`` (L = 50, 300, 130, with and
+     every ball, each row with its in-ball pair share; ``fps`` (SA1, SA2)
+     and ``ball_group`` (SA1, exact and fast, with and without empty balls)
+     equal to their twins bit for bit and over two runs, each row also with
+     the kernel's device time alone (``device_ms``: torch.profiler, without
+     the wrapper's host time) and ``fps`` with its instruction floor
+     (computed, so only in ``chip_smoke_kernels.json``'s ``per_shape``);
+     ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
      without the bias ``ab``; SDPA as their library yardstick; and
      ``flash_fwd`` at L = 300 with whole trailing key tiles of pad and an
      all-pad row, whose skipped tiles must change no bit) and
@@ -81,9 +86,9 @@ SLICE_ARGS = [
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 # SA: bf16 weights and activations on both sides (see ops/sa_forward.py)
 SA_TOL = 1e-2
-# ball_group: exact mode gathers and subtracts like its twin (0); fast mode
-# rounds the gathered values to bf16 on both sides, at most one bf16 step
-BG_TOL = {"exact": 0.0, "fast": 2.0 ** -8}
+# ball_group: both modes gather, round and subtract like the twin: equal
+# bit for bit (fast mode rounds the gathered values to bf16 on both sides)
+BG_TOL = {"exact": 0.0, "fast": 0.0}
 # sa_train kernels vs their twins, on max|kernel - plain| / max|plain|:
 #  sums: sums and Gram over up to 2.6 M rows: f32 sums in another order,
 #        and an occasional one-step bf16 flip of a single h value
@@ -226,6 +231,31 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, reps=5):
+    """Median device duration (torch.profiler) of the kernel whose name
+    holds ``kernel``, over the last ``reps`` of ``reps + 2`` traced calls
+    of ``fn`` after a warm-up (the tracer has been seen to drop a launch):
+    the kernel alone, without the wrapper's host time that a single call's
+    CUDA events include. Fewer than ``reps`` traced launches fail."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 2):
+            fn()
+        torch.cuda.synchronize()
+    traced = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and kernel in e.name)
+    if not reps <= len(traced) <= reps + 2:
+        raise AssertionError(f"device_ms: {len(traced)} launches of {kernel} "
+                             f"traced in {reps + 2} calls")
+    return statistics.median(d for _, d in traced[-reps:])
+
+
 def _err(got, want):
     """(max|got - want|, max|want|)."""
     got, want = got.float(), want.float()
@@ -317,6 +347,14 @@ def fps_bound(G, N, m):
     return bound(G * N * 12 + G * m * 16, 8 * (m - 1) * G * N, "f32")
 
 
+def fps_instr_floor(G, N, m):
+    """ms of the ~10 f32 instructions per point and step that ``fps``
+    issues (the 8 of the bound, none an FMA, plus the min and the compare)
+    at one instruction per lane and clock: half the f32 peak, which counts
+    an FMA as two operations."""
+    return 10 * (m - 1) * G * N / (PEAK["f32"] / 2) * 1e3
+
+
 def phase_sa(table):
     import torch
 
@@ -340,10 +378,16 @@ def phase_sa(table):
         mism = int((got_idx != want_idx).sum())
         if mism:
             raise AssertionError(f"fps {tag}: {mism} indices differ")
+        if not (torch.equal(got_xyz, want_xyz)
+                and torch.equal(sa.fps(xyz, m)[1], got_idx)):
+            raise AssertionError(f"fps {tag}: centers differ from the twin "
+                                 "or between two runs")
         table.add("fps", tag, "f32", *_err(got_xyz, want_xyz),
                   cuda_ms(lambda: sa.fps(xyz, m)),
                   cuda_ms(lambda: sa.fps_plain(xyz, m)), 0.0,
-                  fps_bound(G, N, m))
+                  fps_bound(G, N, m),
+                  device_ms=device_ms(lambda: sa.fps(xyz, m), "sv_fps_kernel"),
+                  instr_floor_ms=fps_instr_floor(G, N, m))
         ws = []
         for cin, h in zip(spec[:-1], spec[1:]):
             ws.append(torch.randn((h, cin), generator=g) / math.sqrt(cin))
@@ -570,6 +614,11 @@ def phase_sample_group(table):
             if mism:
                 raise AssertionError(f"ball_group {tag}{label} {mode}: "
                                      f"{mism} indices differ")
+            again = sg.ball_group(pts, ctr, ns, r, exact)
+            if not (torch.equal(got, want) and torch.equal(got, again[0])
+                    and torch.equal(got_idx, again[1])):
+                raise AssertionError(f"ball_group {tag}{label} {mode}: not "
+                                     "equal to the twin or between two runs")
             # a warp stops at the ns-th hit, else scans all N points
             scanned = torch.where(cnt >= ns, want_idx[..., -1].long() + 1,
                                   torch.full_like(cnt, N)).sum().item()
@@ -579,7 +628,10 @@ def phase_sample_group(table):
                       cuda_ms(lambda: sg.ball_group(pts, ctr, ns, r, exact)),
                       cuda_ms(lambda: sg.ball_group_plain(pts, ctr, ns, r,
                                                           exact), reps=3),
-                      BG_TOL[mode], bnd)
+                      BG_TOL[mode], bnd,
+                      device_ms=device_ms(
+                          lambda: sg.ball_group(pts, ctr, ns, r, exact),
+                          "sv_ball_group_kernel"))
         log(f"[kernel] ball_group {tag}{label}: mean in-ball count "
             f"{cnt.float().mean().item():.2f}, empty balls "
             f"{int((cnt == 0).sum())}, full balls {int((cnt >= ns).sum())}")
@@ -1105,7 +1157,9 @@ def main():
             "max_abs_err": row["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "shape": head["shape"]})
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            **({"device_ms": head["device_ms"]} if "device_ms" in head
+               else {})})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "card": card}, f,

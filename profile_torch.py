@@ -24,7 +24,9 @@ other) and, for the kernels that several entries share (``sa_train``'s,
 ``sv_sa_fwd_kernel``), by entry (the device span of each wrapper's
 ``record_function`` range); writes the torch.profiler
 tables, by device and by host time, to
-``profile_<frozen|unfrozen>[_fused][_exact][_eval]_<amp>.txt`` in ``OUT_DIR``.
+``profile_<frozen|unfrozen>[_fused][_exact][_eval]_<amp>.txt`` in ``OUT_DIR``;
+and, for each of the port's kernels, its device time, launches per step and
+time per launch.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -113,9 +115,10 @@ def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
         if e.key in _SA_ENTRIES:  # a wrapper's range on the device
             entries[e.key] = (dev_us, e.count)
             continue
-        f = fam.setdefault(family(e.key), [0.0, []])
+        f = fam.setdefault(family(e.key), [0.0, [], 0])
         f[0] += dev_us
         f[1].append((dev_us, e.key))
+        f[2] += e.count
         total += dev_us
     print(f"[profile {tag} {amp}] {steps} steps, "
           f"{wall / steps * 1e3:.2f} ms/step wall profiled, "
@@ -123,11 +126,17 @@ def profile(amp: str, steps: int, overrides: list[str], evaluate: bool) -> None:
           f"{total / steps / 1e3:.2f} ms/step, busy share "
           f"{total / 1e3 / (wall * 1e3):.3f} profiled, "
           f"{min(1.0, total / 1e3 / (bare * 1e3)):.3f} without", flush=True)
-    for k, (us, items) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
+    for k, (us, items, _) in sorted(fam.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile {tag} {amp}]   {k:11s} {us / steps / 1e3:8.2f} ms/step "
               f"({us / total:.3f} of device time)")
         for t, n in sorted(items, reverse=True)[:3]:
             print(f"[profile {tag} {amp}]       {t / steps / 1e3:8.2f} ms  {n[:90]}")
+    for k in _PORT:  # each of the port's kernels on its own
+        if k in fam:
+            us, _, n = fam[k]
+            print(f"[profile {tag} {amp}]   kernel {k:10s} "
+                  f"{us / steps / 1e3:8.3f} ms/step, {n / steps:.0f} "
+                  f"launches/step, {us / n / 1e3:.4f} ms per launch")
     for k, (us, n) in sorted(entries.items()):
         print(f"[profile {tag} {amp}]   entry {k:17s} "
               f"{us / steps / 1e3:8.2f} ms/step on the device, "

@@ -19,14 +19,16 @@ buffers. The input is plain numpy keyed by dotted nnx path: this module
 never sees a JAX object.
 
 ``load_torch_pretrain`` loads torch checkpoints (released
-``pytorch_model*.bin`` shards or this package's ``best.pth``) by name.
+``pytorch_model*.bin`` shards or this package's ``best.pth``) by name,
+skipping a tensor whose shape differs from the model's, as the JAX
+package's loader does.
 """
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -77,13 +79,38 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def apply_state_dict(model: torch.nn.Module,
+                     weights: Dict[str, torch.Tensor]
+                     ) -> Tuple[int, List[str], List[str]]:
+    """Non-strict load by name, as JAX ``apply_to_model`` (``ckpt/convert.py
+    :139-177`` there): a tensor the model lacks, or whose shape differs from
+    the model's, is skipped and listed as unexpected (a mismatch with both
+    shapes); every other tensor is copied. Returns (tensors loaded, the
+    model's tensors left as they were, unexpected): a skipped mismatch is in
+    both lists, as there."""
+    own = model.state_dict()
+    unexpected, hit = [], set()
+    with torch.no_grad():
+        for k, t in weights.items():
+            if k not in own:
+                unexpected.append(k)
+            elif tuple(t.shape) != tuple(own[k].shape):
+                unexpected.append(f"{k} (shape {tuple(t.shape)} vs "
+                                  f"{tuple(own[k].shape)})")
+            else:
+                own[k].copy_(t)
+                hit.add(k)
+    return len(hit), [k for k in own if k not in hit], unexpected
+
+
 def load_torch_pretrain(model: torch.nn.Module, ckpt_path) -> int:
     """Warm start (JAX ``ckpt/convert.py:189-210``; reference
     trainer/build.py:174-184): a directory of ``pytorch_model*.bin`` shards,
     or one file holding a flat state dict or this package's own checkpoint
-    (``BaseTrainer.save``: the state dict under ``"model"``). Non-strict:
-    reports missing and unexpected keys, raises on a shape mismatch before
-    anything is copied, and returns the number of tensors loaded."""
+    (``BaseTrainer.save``: the state dict under ``"model"``). Non-strict, by
+    ``apply_state_dict``: reports missing and unexpected keys, skips a
+    tensor whose shape differs from the model's and loads the rest; returns
+    the number of tensors loaded."""
     path = Path(ckpt_path)
     if path.is_dir():
         paths = sorted(path.glob("pytorch_model*.bin"))
@@ -97,25 +124,14 @@ def load_torch_pretrain(model: torch.nn.Module, ckpt_path) -> int:
         if isinstance(sd.get("model"), dict):
             sd = sd["model"]
         weights.update(sd)
-    own = model.state_dict()
-    unexpected = [k for k in weights if k not in own]
-    mismatched = [f"{k} {tuple(t.shape)} vs {tuple(own[k].shape)}"
-                  for k, t in weights.items()
-                  if k in own and tuple(t.shape) != tuple(own[k].shape)]
-    if mismatched:
-        raise ValueError(f"{path}: shape mismatch: {mismatched}")
-    with torch.no_grad():
-        for k, t in weights.items():
-            if k in own:
-                own[k].copy_(t)
-    missing = [k for k in own if k not in weights]
+    loaded, missing, unexpected = apply_state_dict(model, weights)
     if unexpected:
-        print(f"[convert] {len(unexpected)} unexpected tensors, e.g. "
-              f"{unexpected[:5]}")
+        print(f"[convert] {len(unexpected)} unexpected/unmatched tensors, "
+              f"e.g. {unexpected[:5]}")
     if missing:
         print(f"[convert] {len(missing)} tensors not in the checkpoint, e.g. "
               f"{missing[:5]}")
-    return len(weights) - len(unexpected)
+    return loaded
 
 
 def load_jax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray]):

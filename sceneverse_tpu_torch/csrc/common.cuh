@@ -40,6 +40,58 @@ __device__ __forceinline__ float sv_sq3(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
+// Ball query of up to 4 centers in one pass of a warp over the points' x, y
+// and z (sv_sa_fwd, sv_ball_group), point i's at X[i S], Y[i S], Z[i S]
+// (S = 1: planes; S = C: rows): list[u] receives center u's first
+// lim point indices with strict d2 < r2, in index order, and cnt[u] counts
+// its hits (it may pass lim). A center that enters with cnt[u] >= lim (no
+// center) lists nothing, nor does a center whose list has filled: its
+// coordinates turn to +inf, so that no distance to it is below r2, and the
+// scan ends when all four have. One set of loads serves the four ballots;
+// a chunk of 32 points whose four ballots are all empty costs no rank work.
+// PADDED: the planes run to a multiple of 32 points, the pad at +inf, so
+// no point needs a bound check. cnt is warp-uniform, so are the branches.
+template <bool PADDED>
+__device__ __forceinline__ void sv_ball_scan4(const float* X, const float* Y, const float* Z,
+                                              int S, int N, float r2, int lim,
+                                              const float (&cx)[4], const float (&cy)[4],
+                                              const float (&cz)[4],
+                                              int* const (&list)[4], int (&cnt)[4], int lane) {
+  float qx[4], qy[4], qz[4];
+  int live = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const bool on = cnt[u] < lim;
+    qx[u] = on ? cx[u] : INFINITY;
+    qy[u] = on ? cy[u] : INFINITY;
+    qz[u] = on ? cz[u] : INFINITY;
+    live += on;
+  }
+  for (int base = 0; live > 0 && base < N; base += 32) {
+    const int i = base + lane;
+    const bool in = PADDED || i < N;
+    const float x = in ? X[i * S] : 0.f, y = in ? Y[i * S] : 0.f, z = in ? Z[i * S] : 0.f;
+    unsigned ball[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      ball[u] = __ballot_sync(SV_FULL_MASK,
+                              in && sv_sq3(x - qx[u], y - qy[u], z - qz[u]) < r2);
+    if (ball[0] | ball[1] | ball[2] | ball[3]) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!ball[u]) continue;
+        const int rank = __popc(ball[u] & ((1u << lane) - 1u));
+        if ((ball[u] >> lane & 1u) && cnt[u] + rank < lim) list[u][cnt[u] + rank] = i;
+        cnt[u] += __popc(ball[u]);
+        if (cnt[u] >= lim) {
+          qx[u] = qy[u] = qz[u] = INFINITY;
+          --live;
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Tensor-core building blocks with documented register layouts (PTX ISA,
 // "Matrix fragments for mma.m16n8k16"): g = lane / 4, t = lane % 4.
@@ -51,6 +103,11 @@ __device__ __forceinline__ float sv_sq3(float dx, float dy, float dz) {
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t sv_smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 4-byte global -> shared copy (any 4-byte aligned addresses)
+__device__ __forceinline__ void sv_cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sv_smem_addr(dst)), "l"(src));
 }
 
 // 16-byte global -> shared copy of which the first `bytes` are read and the

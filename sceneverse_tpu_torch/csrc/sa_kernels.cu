@@ -10,70 +10,107 @@
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
-// FPS: one block per object; xyz and the running min-distance in shared
-// memory; serial npoint loop with a block-wide argmax (ties -> lowest index).
+// FPS: one warp per object, no block barrier. The warp stages its object's
+// xyz once into its own shared-memory copy (16-byte loads where aligned);
+// lane l owns points l + 32 k. With PPL > 0 (N <= 32 PPL) their coordinates
+// and running min-distances live in registers (every index static); with
+// PPL == 0 (large N) the min-distances stay in the warp's shared memory.
+// Each step: the lane's distances and its best (value, index), an xor
+// butterfly over (value, index) with the lowest index winning a tie, so that
+// every lane holds the winner, whose coordinates come from the warp's copy.
+// The step's index goes to a list (shared memory, or the output itself when
+// PPL == 0); the centers and indices leave in one coalesced pass at the end.
 // ---------------------------------------------------------------------------
+constexpr int SV_FPS_WARPS = 4;  // objects per block of the register path
+
 __device__ __forceinline__ void sv_argmax_merge(float& v, int& i, float v2, int i2) {
   if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
 }
 
-__global__ void sv_fps_kernel(const float* __restrict__ xyz, int N, int npoint,
-                              float* __restrict__ new_xyz, int* __restrict__ out_idx) {
-  extern __shared__ float fsm[];
-  float* px = fsm;
-  float* py = px + N;
-  float* pz = py + N;
-  float* md = pz + N;
-  __shared__ float wv[32];
-  __shared__ int wi[32];
-  __shared__ int sel;
-  const int g = blockIdx.x;
+// floats of one warp's region: xyz (3 N, to a 16-byte multiple), then the
+// step list (register path) or the min-distances (shared path)
+__host__ __device__ inline int sv_fps_xyz_floats(int N) { return (3 * N + 3) & ~3; }
+__host__ __device__ inline int sv_fps_warp_floats(int N, int npoint, int ppl) {
+  return sv_fps_xyz_floats(N) + (ppl ? (npoint + 3) & ~3 : N);
+}
+
+template <int PPL>
+__global__ void __launch_bounds__((PPL ? SV_FPS_WARPS : 1) * 32)
+sv_fps_kernel(const float* __restrict__ xyz, int G, int N, int npoint,
+              float* __restrict__ new_xyz, int* __restrict__ out_idx) {
+  constexpr int W = PPL ? SV_FPS_WARPS : 1;
+  extern __shared__ __align__(16) float fsm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int g = blockIdx.x * W + warp;
+  if (g >= G) return;  // the warp's own object only: nothing waits on it
+  float* s = fsm + warp * sv_fps_warp_floats(N, npoint, PPL);
   const float* p = xyz + (size_t)g * N * 3;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
-    px[i] = x; py[i] = y; pz[i] = z;
-    // near-origin (padding) points are never candidates
-    md[i] = sv_sq3(x, y, z) > 1e-3f ? 1e10f : -1.0f;
+  if ((N & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    float4* s4 = reinterpret_cast<float4*>(s);
+    for (int i = lane; i < 3 * N / 4; i += 32) s4[i] = __ldg(p4 + i);
+  } else {
+    for (int i = lane; i < 3 * N; i += 32) s[i] = __ldg(p + i);
   }
-  __syncthreads();
-  int old = 0;
-  for (int j = 0; j < npoint; ++j) {
-    const float cx = px[old], cy = py[old], cz = pz[old];
-    if (threadIdx.x == 0) {
-      float* o = new_xyz + ((size_t)g * npoint + j) * 3;
-      o[0] = cx; o[1] = cy; o[2] = cz;
-      out_idx[(size_t)g * npoint + j] = old;
+  __syncwarp();
+  // near-origin (padding) points are never candidates: -1 stays below every
+  // distance; a slot past N holds -inf and never wins
+  int* list = PPL ? reinterpret_cast<int*>(s + sv_fps_xyz_floats(N))
+                  : out_idx + (size_t)g * npoint;
+  float px[PPL ? PPL : 1], py[PPL ? PPL : 1], pz[PPL ? PPL : 1], md[PPL ? PPL : 1];
+  float* mdS = s + sv_fps_xyz_floats(N);
+  if constexpr (PPL > 0) {
+#pragma unroll
+    for (int k = 0; k < PPL; ++k) {
+      const int i = lane + 32 * k;
+      const bool in = i < N;
+      px[k] = in ? s[3 * i] : 0.f;
+      py[k] = in ? s[3 * i + 1] : 0.f;
+      pz[k] = in ? s[3 * i + 2] : 0.f;
+      md[k] = !in ? -INFINITY : (sv_sq3(px[k], py[k], pz[k]) > 1e-3f ? 1e10f : -1.0f);
     }
-    if (j + 1 == npoint) break;
+  } else {
+    for (int i = lane; i < N; i += 32)
+      mdS[i] = sv_sq3(s[3 * i], s[3 * i + 1], s[3 * i + 2]) > 1e-3f ? 1e10f : -1.0f;
+  }
+  int old = 0;
+  if (lane == 0) list[0] = 0;
+  for (int j = 1; j < npoint; ++j) {
+    const float cx = s[3 * old], cy = s[3 * old + 1], cz = s[3 * old + 2];
     float bv = -INFINITY;
     int bi = N;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      const float d = sv_sq3(px[i] - cx, py[i] - cy, pz[i] - cz);
-      const float m = fminf(md[i], d);  // invalid points stay at -1
-      md[i] = m;
-      if (m > bv) { bv = m; bi = i; }
+    if constexpr (PPL > 0) {
+#pragma unroll
+      for (int k = 0; k < PPL; ++k) {
+        md[k] = fminf(md[k], sv_sq3(px[k] - cx, py[k] - cy, pz[k] - cz));
+        if (md[k] > bv) { bv = md[k]; bi = lane + 32 * k; }  // strict: lowest k
+      }
+    } else {
+      for (int i = lane; i < N; i += 32) {
+        const float m = fminf(mdS[i], sv_sq3(s[3 * i] - cx, s[3 * i + 1] - cy,
+                                             s[3 * i + 2] - cz));
+        mdS[i] = m;
+        if (m > bv) { bv = m; bi = i; }
+      }
     }
+#pragma unroll
     for (int off = 16; off; off >>= 1) {
-      const float v2 = __shfl_down_sync(SV_FULL_MASK, bv, off);
-      const int i2 = __shfl_down_sync(SV_FULL_MASK, bi, off);
+      const float v2 = __shfl_xor_sync(SV_FULL_MASK, bv, off);
+      const int i2 = __shfl_xor_sync(SV_FULL_MASK, bi, off);
       sv_argmax_merge(bv, bi, v2, i2);
     }
-    if (lane == 0) { wv[warp] = bv; wi[warp] = bi; }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? wv[lane] : -INFINITY;
-      bi = lane < nwarps ? wi[lane] : N;
-      for (int off = 16; off; off >>= 1) {
-        const float v2 = __shfl_down_sync(SV_FULL_MASK, bv, off);
-        const int i2 = __shfl_down_sync(SV_FULL_MASK, bi, off);
-        sv_argmax_merge(bv, bi, v2, i2);
-      }
-      if (lane == 0) sel = bi;
-    }
-    __syncthreads();
-    old = sel;
+    old = bi;  // the same on every lane
+    if (lane == 0) list[j] = old;
+  }
+  if constexpr (PPL == 0) __threadfence_block();  // the list is the output
+  __syncwarp();
+  int* oi = out_idx + (size_t)g * npoint;
+  if constexpr (PPL > 0)
+    for (int j = lane; j < npoint; j += 32) oi[j] = list[j];
+  float* oc = new_xyz + (size_t)g * npoint * 3;
+  for (int e = lane; e < 3 * npoint; e += 32) {
+    const int j = e / 3;
+    oc[e] = s[3 * list[j] + e - 3 * j];
   }
 }
 
@@ -333,6 +370,7 @@ sv_sa_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ center
     for (int c0 = warp; c0 < m; c0 += 4 * NW) {
       float cx[4], cy[4], cz[4];
       int cnt[4];
+      int* list[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = min(c0 + u * NW, m - 1);
@@ -340,24 +378,10 @@ sv_sa_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ center
         cy[u] = ctrS[c * 6 + 1];
         cz[u] = ctrS[c * 6 + 2];
         cnt[u] = c0 + u * NW < m ? 0 : lim;  // no center: nothing to list
+        list[u] = selS + c * lim;
       }
-      for (int base = 0; base < N; base += 32) {
-        if (cnt[0] >= lim && cnt[1] >= lim && cnt[2] >= lim && cnt[3] >= lim) break;
-        const int i = base + lane;
-        const float x = i < N ? xyzS[i] : 0.f, y = i < N ? xyzS[N + i] : 0.f,
-                    z = i < N ? xyzS[2 * N + i] : 0.f;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const unsigned ball =
-              __ballot_sync(SV_FULL_MASK, i < N && sv_sq3(x - cx[u], y - cy[u], z - cz[u]) < r2);
-          if (ball) {  // warp-uniform: most chunks of a small ball hold none
-            const int rank = __popc(ball & ((1u << lane) - 1u));
-            if ((ball >> lane & 1u) && cnt[u] + rank < lim)
-              selS[(c0 + u * NW) * lim + cnt[u] + rank] = i;
-            cnt[u] += __popc(ball);
-          }
-        }
-      }
+      sv_ball_scan4<false>(xyzS, xyzS + N, xyzS + 2 * N, 1, N, r2, lim, cx, cy, cz, list,
+                           cnt, lane);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = c0 + u * NW;
@@ -596,15 +620,45 @@ extern "C" int sv_sa_fwd(const float* pts, const float* centers, const void* w1,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int sv_fps(const float* xyz, int G, int N, int npoint, float* new_xyz,
-                      int* idx, void* stream) {
-  int threads = ((N + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  const size_t smem = (size_t)4 * N * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sv_fps_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  sv_fps_kernel<<<G, threads, smem, (cudaStream_t)stream>>>(xyz, N, npoint, new_xyz, idx);
+// points per lane of the register path; 0: the shared-memory path
+static int sv_fps_ppl(int N) {
+  int ppl = 1;
+  while (32 * ppl < N && ppl < 32) ppl *= 2;
+  return 32 * ppl < N ? 0 : ppl;
+}
+
+extern "C" int sv_fps_smem(int N, int npoint) {
+  const int ppl = sv_fps_ppl(N);
+  return 4 * (ppl ? SV_FPS_WARPS : 1) * sv_fps_warp_floats(N, npoint, ppl);
+}
+
+template <int PPL>
+static int sv_fps_launch(const float* xyz, int G, int N, int npoint, float* new_xyz, int* idx,
+                         cudaStream_t stream) {
+  constexpr int W = PPL ? SV_FPS_WARPS : 1;
+  static int smem_allowed = 0;  // this instance's opt-in so far (the host's one card)
+  const int smem = sv_fps_smem(N, npoint);
+  if (smem > smem_allowed) {
+    cudaError_t e = cudaFuncSetAttribute(sv_fps_kernel<PPL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_allowed = smem;
+  }
+  sv_fps_kernel<PPL><<<(G + W - 1) / W, W * 32, smem, stream>>>(xyz, G, N, npoint, new_xyz,
+                                                                 idx);
   return (int)cudaGetLastError();
 }
 
+extern "C" int sv_fps(const float* xyz, int G, int N, int npoint, float* new_xyz,
+                      int* idx, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (sv_fps_ppl(N)) {
+    case 1: return sv_fps_launch<1>(xyz, G, N, npoint, new_xyz, idx, s);
+    case 2: return sv_fps_launch<2>(xyz, G, N, npoint, new_xyz, idx, s);
+    case 4: return sv_fps_launch<4>(xyz, G, N, npoint, new_xyz, idx, s);
+    case 8: return sv_fps_launch<8>(xyz, G, N, npoint, new_xyz, idx, s);
+    case 16: return sv_fps_launch<16>(xyz, G, N, npoint, new_xyz, idx, s);
+    case 32: return sv_fps_launch<32>(xyz, G, N, npoint, new_xyz, idx, s);
+    default: return sv_fps_launch<0>(xyz, G, N, npoint, new_xyz, idx, s);
+  }
+}

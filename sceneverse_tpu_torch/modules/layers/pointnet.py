@@ -11,7 +11,8 @@ with a sample count run through the fused SA kernels (``ops/sa_forward.py``,
 bf16-operand / f32-accumulate matmul chain of :307-333.
 
 Trainable route (:335-402 there): SA1 (N >= 256) samples and groups through
-``ops/sample_group.py``; smaller levels (SA2) take plain point ops, with FPS
+``ops/sample_group.py``, in the fast mode (bf16-rounded gather) when
+``SCENEVERSE_PALLAS_FAST`` was set as the module was built; smaller levels (SA2) take plain point ops, with FPS
 indices from the ``fps`` kernel and ``torch.gather`` carrying the feature
 gradient; GroupAll is one ``(B, 1, N, C)`` group. The SharedMLP then runs
 one of three ways, chosen at call time by the JAX package's gates
@@ -233,6 +234,11 @@ class PointnetSAModule(nn.Module):
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.use_xyz = use_xyz
         self.fused_frozen = False
+        # JAX pointnet.py:249-253: read once, when the module is built.
+        # exact: the gathered points keep f32 (eval, checkpoint parity);
+        # fast (SCENEVERSE_PALLAS_FAST set): the trainable SA1 route rounds
+        # them to bf16, lossless for a bf16 first layer
+        self.pallas_exact = os.environ.get("SCENEVERSE_PALLAS_FAST", "") == ""
         spec = list(mlp)
         if use_xyz:
             spec[0] += 3
@@ -252,11 +258,12 @@ class PointnetSAModule(nn.Module):
         """(new_xyz, grouped (B, M, S, C)), autocast off: point ops and
         grouping keep their own numerics."""
         if self.npoint is not None and xyz.shape[1] >= 256:
-            # grouped in f32, as the kernel computes it (exact mode, the JAX
-            # package's default); the MLP runs in the points' type
+            # grouped in f32 as the kernel computes it, exact or fast as the
+            # module was built (JAX pointnet.py:335-348); the MLP runs in the
+            # points' type
             grouped, new_xyz = (t.to(xyz.dtype) for t in sample_and_group(
                 self._points(xyz, features), self.npoint, self.nsample,
-                self.radius))
+                self.radius, self.pallas_exact))
             if not self.use_xyz and features is not None:
                 grouped = grouped[..., 3:]
             return new_xyz, grouped

@@ -7,12 +7,24 @@ Port of ``sceneverse_tpu/ops/pallas/sa_forward.py::fused_sa_forward``
 hand-written CUDA kernels (``csrc/sa_kernels.cu``):
 
 ``fps``
-    replaces ``_fps_inline`` / ``_fps_kernel_t``. One block per object, the
-    object's xyz and running min-distance in shared memory, a serial
-    ``npoint`` loop with a block-wide argmax (ties to the lowest index).
-    Bound: the serial chain of ``npoint`` block reductions (two barriers per
-    step), not bytes or FLOPs; the design keeps every step on-chip and runs
-    all objects' chains in parallel, one per block.
+    replaces ``_fps_inline`` / ``_fps_kernel_t``. One warp per object, 4
+    objects per block, no block barrier: the warp stages its object's xyz
+    once (16-byte loads where aligned) into its own shared-memory copy; lane
+    l owns points l + 32 k, their coordinates and running min-distances in
+    registers (the kernel is templated on points per lane, 1 at SA2's N=32,
+    32 at SA1's N=1024, so every register index is static; above N=1024 the
+    min-distances stay in the warp's shared memory, one warp a block). A
+    step is the lane's distances and best (value, index), then an xor
+    butterfly over (value, index) with the lowest index winning a tie, so
+    every lane holds the winner; its coordinates come from the warp's copy
+    after the staging ``__syncwarp``. The centers and indices leave in one
+    coalesced pass at the end. Bound: ``chip_smoke.fps_bound`` counts the 8
+    distance operations per point and step at the f32 peak of 67 TFLOP/s,
+    which counts an FMA as two (SA1 0.0098 ms). None of them is an FMA: the
+    kernel issues about 10 instructions per point and step (3 sub, 3 mul, 2
+    add, min, compare) at 132 x 128 lanes a clock, an instruction floor of
+    about 0.024 ms at SA1. SA2 (N=32, one point per lane) is a chain of 15
+    dependent butterflies per warp: latency, not throughput.
 
 ``sa_group_mlp_pool`` and ``sa_dense_pool`` (one kernel, ``sv_sa_fwd``)
     replace the body of ``_kernel`` (selection branch nsample < N for SA1,
@@ -60,6 +72,7 @@ nothing in the output.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -157,12 +170,18 @@ def _lib():
     if not hasattr(lib, "_bound"):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fps_fn = _build.bind(lib, "sv_fps", [P, I, I, I, P, P, P])
+        lib.fps_smem_fn = _build.bind(lib, "sv_fps_smem", [I, I])
         lib.smem_fn = _build.bind(lib, "sv_sa_fwd_smem", [I] * 7)
         lib.sa_fn = _build.bind(
             lib, "sv_sa_fwd",
             [P] * 12 + [I, I, I, I, I, I, F, P])
         lib._bound = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fps_smem(N: int, npoint: int) -> int:
+    return _lib().fps_smem_fn(N, npoint)
 
 
 def fps(xyz: torch.Tensor, npoint: int):
@@ -173,15 +192,16 @@ def fps(xyz: torch.Tensor, npoint: int):
     G, N, three = xyz.shape
     if three != 3 or not 1 <= npoint <= N:
         raise ValueError(f"fps: bad shape {tuple(xyz.shape)} npoint={npoint}")
-    if 4 * N * 4 > _MAX_SMEM:
+    lib = _lib()
+    if _fps_smem(N, npoint) > _MAX_SMEM:
         raise ValueError(f"fps: N={N} exceeds shared memory")
     new_xyz = torch.empty((G, npoint, 3), device=xyz.device,
                           dtype=torch.float32)
     idx = torch.empty((G, npoint), device=xyz.device, dtype=torch.int32)
     if G == 0:
         return new_xyz, idx
-    code = _lib().fps_fn(xyz.data_ptr(), G, N, npoint, new_xyz.data_ptr(),
-                         idx.data_ptr(), _build.stream_ptr(xyz))
+    code = lib.fps_fn(xyz.data_ptr(), G, N, npoint, new_xyz.data_ptr(),
+                      idx.data_ptr(), _build.stream_ptr(xyz))
     _build.LAUNCHES["fps"] += 1
     _build.check(code, "fps")
     return new_xyz, idx

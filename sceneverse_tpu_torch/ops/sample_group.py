@@ -11,17 +11,32 @@ Port of ``sceneverse_tpu/ops/pallas/sample_group.py`` (TPU kernel
     a tie, an all-pad object repeats index 0.
 
 ``ball_group`` (``csrc/sample_group.cu``)
-    the ball-query and grouping half (:100-159). One block per object stages
-    the object's (N, C) points in shared memory; a warp per center scans
-    them in index order with ``__ballot_sync`` and keeps the first
-    ``nsample`` with strict ``d2 < r^2`` (``d2 = (dx^2 + dy^2) + dz^2``
-    without FMA contraction, as the plain twin computes it), pads with the
-    first hit (point 0 for an empty ball), and writes the indices and the
-    grouped rows. Bound: bytes. At SA1 (G=2560, N=1024, C=6, m=ns=32) it
-    reads 63 MB of points and writes 63 MB of grouped values and 10.5 MB of
-    indices, about 40 us at 3.35 TB/s; the design reads each object once
-    into shared memory and writes each output once. Vectorised 16-byte
-    stores of the 6-channel rows are later work.
+    the ball-query and grouping half (:100-159). Persistent blocks (one
+    wave: SMs x blocks per SM) walk the objects; the next object's (N, C)
+    rows and centers are in flight (``cp.async``, 16-byte copies where
+    aligned, a second buffer where two fit in shared memory) while the
+    current one is scanned and written. Per object the block builds x, y, z
+    planes beside the rows (conflict-free loads for the scan); per chunk of
+    32 centers a warp tests 4 centers per pass over the planes (one set of
+    loads, four ``__ballot_sync``, no rank work for an empty ballot; the
+    scan ``sv_ball_scan4`` is the one ``sv_sa_fwd`` runs) and stops for a
+    center once its ball is full. Each center keeps the first ``nsample``
+    points with strict ``d2 < r^2`` (``d2 = (dx^2 + dy^2) + dz^2`` without
+    FMA contraction, as the plain twin computes it), padded with the first
+    hit (point 0 for an empty ball). A chunk's indices and grouped rows are
+    contiguous in the outputs: the block writes them with 16-byte stores
+    where aligned, at C = 6 two whole rows a thread, else one float a
+    thread, each thread following its element's (center, sample, channel)
+    by a fixed advance, no integer divide per element. Where one buffer and
+    the planes do not fit in the 227 KB of shared memory, the block stages
+    the rows alone and a warp lists one center a pass from them, so the
+    wrapper takes every object of ``4 (N C + 8 nsample)`` bytes up to
+    227 KB (at C = 6, nsample = 32: N up to 9642). Bound:
+    bytes. At SA1 (G=2560, N=1024, C=6, m=ns=32) it reads 63 MB of points
+    and writes 63 MB of grouped values and 10.5 MB of indices, about 41 us
+    at 3.35 TB/s; on the path's standard-normal data almost no ball fills,
+    so each warp scans all N points for its 4 centers, about as many
+    instruction issues again.
 
 ``grouped`` is centered xyz ++ raw channels 3.. (the TPU kernel's :237-243).
 ``exact=False`` is the JAX package's ``SCENEVERSE_PALLAS_FAST`` mode: the
@@ -34,6 +49,7 @@ because SA1's input is data and needs no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,7 +58,6 @@ from sceneverse_tpu_torch.ops.pointops import ball_query, group_points
 from sceneverse_tpu_torch.ops.sa_forward import _bf16, fps, fps_plain
 
 _MAX_SMEM = 227 * 1024
-_WARPS = 8  # SV_BG_WARPS in csrc/sample_group.cu
 
 
 # --------------------------------------------------------------- plain twins
@@ -71,13 +86,15 @@ def _lib():
     if not hasattr(lib, "_bound"):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ball_group_fn = _build.bind(lib, "sv_ball_group",
-                                        [P, P, I, I, I, I, I, F, I, P, P, I, P])
+                                        [P, P, I, I, I, I, I, F, I, P, P, P])
+        lib.smem_fn = _build.bind(lib, "sv_ball_group_smem", [I, I, I, I])
         lib._bound = True
     return lib
 
 
-def ball_group_smem_bytes(N: int, C: int, nsample: int) -> int:
-    return 4 * (N * C + _WARPS * nsample)
+@functools.lru_cache(maxsize=None)
+def _smem(N: int, C: int, m: int, nsample: int) -> int:
+    return _lib().smem_fn(N, C, m, nsample)
 
 
 def ball_group(pts: torch.Tensor, centers: torch.Tensor, nsample: int,
@@ -95,7 +112,8 @@ def ball_group(pts: torch.Tensor, centers: torch.Tensor, nsample: int,
                          "(G, m, 3)")
     if nsample < 1:
         raise ValueError(f"ball_group: nsample={nsample}")
-    smem = ball_group_smem_bytes(N, C, nsample)
+    lib = _lib()
+    smem = _smem(N, C, m, nsample)
     if smem > _MAX_SMEM:
         raise ValueError(f"ball_group: {smem} B of shared memory needed, the "
                          f"card has {_MAX_SMEM}")
@@ -104,10 +122,10 @@ def ball_group(pts: torch.Tensor, centers: torch.Tensor, nsample: int,
     idx = torch.empty((G, m, nsample), device=pts.device, dtype=torch.int32)
     if G == 0 or m == 0:
         return grouped, idx
-    code = _lib().ball_group_fn(
+    code = lib.ball_group_fn(
         pts.data_ptr(), centers.data_ptr(), G, N, C, m, nsample,
         float(radius * radius), int(bool(exact)), grouped.data_ptr(),
-        idx.data_ptr(), smem, _build.stream_ptr(pts))
+        idx.data_ptr(), _build.stream_ptr(pts))
     _build.LAUNCHES["ball_group"] += 1
     _build.check(code, "ball_group")
     return grouped, idx

@@ -8,9 +8,9 @@ import). On a GPU machine, without the JAX-only conftest:
 Tolerances on max|kernel - plain| / max|plain|: f32 1e-4 (same f32
 arithmetic, another summation order); bf16 2e-2 (an element on a bf16
 rounding boundary may land one step, 2^-8, apart); SA 1e-2 (bf16 weights and
-activations on both sides); FPS and ball-query indices exactly equal;
-ball_group's grouped rows exactly equal (the same gather, bf16 rounding and
-f32 subtraction on both sides); mha_fwd / mha_bwd bit-identical over two
+activations on both sides); FPS indices and centers and ball-query
+indices exactly equal, and over two runs; ball_group's grouped rows exactly
+equal (the same gather, bf16 rounding and f32 subtraction on both sides); mha_fwd / mha_bwd bit-identical over two
 runs, f32 (3xTF32 products) within 1e-4 and bf16 within 2e-2; sa_train: the tolerances of chip_smoke.py's
 SA_TRAIN_TOL (its comment gives the reasons), argmax equal but at
 near-ties, and every kernel bit-identical over two runs; sa_group_mlp_pool,
@@ -139,29 +139,98 @@ def test_sa_kernels_match_plain(dev, level, case):
         assert torch.equal(*outs)
 
 
+def _fps_points(kind, G, N, seed=3):
+    """G objects of N points, the last all padding when G > 1 (FPS repeats
+    index 0); "grid": coordinates on a coarse grid, so that many distances
+    tie (the CPU edge cases of tests/test_torch_ops.py)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    if kind == "grid":
+        x = (rng.randint(-2, 3, size=(G, N, 3)) * 0.5).astype(np.float32)
+    else:
+        x = rng.randn(G, N, 3).astype(np.float32)
+    if G > 1:
+        x[-1] = 0.0
+    return torch.from_numpy(x)
+
+
+FPS_CASES = ([(kind, 3, N, m) for kind in ("randn", "grid")
+              for N in (17, 1000) for m in (1, N)]
+             + [("randn", 1, 1024, 32),     # one object
+                ("randn", 531, 1024, 32),   # no multiple of 4 objects a block
+                ("randn", 531, 32, 16),     # SA2's N, one point per lane
+                ("grid", 4, 2048, 64),      # above the register budget
+                ("randn", 4, 2048, 2048)])
+
+
+@pytest.mark.parametrize("kind,G,N,npoint", FPS_CASES)
+def test_fps_matches_plain(dev, kind, G, N, npoint):
+    """``fps`` indices and centers equal to its twin's bit for bit, and
+    over two runs."""
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    xyz = _fps_points(kind, G, N).to(dev)
+    before = _build.LAUNCHES["fps"]
+    ctr, idx = sa.fps(xyz, npoint)
+    ctr2, idx2 = sa.fps(xyz, npoint)
+    ctr_ref, idx_ref = sa.fps_plain(xyz, npoint)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fps"] == before + 2
+    assert torch.equal(idx, idx_ref) and torch.equal(ctr, ctr_ref)
+    assert torch.equal(idx, idx2) and torch.equal(ctr, ctr2)
+    if G > 1:
+        assert (idx[-1] == 0).all()
+
+
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("G,N,C,m,ns,r", [
     (48, 256, 6, 32, 32, 0.2),      # small
     (2560, 1024, 6, 32, 32, 0.2),   # SA1 of the unfrozen slice
+    (1, 1024, 6, 32, 32, 0.2),      # one object
+    (531, 1024, 6, 32, 32, 0.2),    # no multiple of the persistent grid
+    (48, 2048, 6, 64, 48, 0.2),     # two chunks of centers
+    (48, 4096, 6, 64, 48, 0.2),     # one buffer a block
+    (3, 81, 3, 5, 17, 0.5),         # nothing 16-byte aligned
+    (3, 81, 6, 5, 17, 0.5),         # C = 6, element-wise stores
+    (2, 9642, 6, 32, 32, 0.2),      # the direct layout: the largest N at C = 6
+    (3, 8000, 7, 5, 17, 0.5),       # the direct layout, nothing aligned
+    # the CPU edge cases (tests/test_torch_sample_group.py): every ball
+    # full (radius 100) or empty (radius 0), C 3 and 9, nsample 16 and 64
+    *[(2, 80, C, 8, ns, r) for C in (3, 9) for ns in (16, 64)
+      for r in (100.0, 0.0)],
 ])
 def test_ball_group_matches_plain(dev, G, N, C, m, ns, r, exact):
+    """``ball_group`` indices and grouped values equal to its twin's bit
+    for bit, and over two runs; with G > 2 the first two objects' balls
+    empty."""
     from sceneverse_tpu_torch.ops import _build
     from sceneverse_tpu_torch.ops import sa_forward as sa
     from sceneverse_tpu_torch.ops import sample_group as sg
 
     g = torch.Generator().manual_seed(2)
     pts = torch.randn((G, N, C), generator=g)
-    pts[-2:, :, :3] = 0.0  # all-pad objects
+    if G > 4:
+        pts[-2:, :, :3] = 0.0  # all-pad objects
     pts = pts.to(dev)
     ctr, _ = sa.fps(pts[..., :3].contiguous(), m)
-    ctr[:2] += 5.0  # empty balls
+    if G > 2:
+        ctr[:2] += 5.0  # empty balls
     before = _build.LAUNCHES["ball_group"]
     got, idx = sg.ball_group(pts, ctr, ns, r, exact)
+    got2, idx2 = sg.ball_group(pts, ctr, ns, r, exact)
     want, want_idx = sg.ball_group_plain(pts, ctr, ns, r, exact)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["ball_group"] == before + 1
+    assert _build.LAUNCHES["ball_group"] == before + 2
     assert torch.equal(idx, want_idx) and torch.equal(got, want)
-    assert (idx[:2] == 0).all()
+    assert torch.equal(idx, idx2) and torch.equal(got, got2)
+    if r == 0.0:
+        assert (idx == 0).all()
+    elif r == 100.0:
+        assert (idx == torch.arange(ns, device=dev, dtype=idx.dtype)).all()
+    elif G > 2:
+        assert (idx[:2] == 0).all()
     grouped, new_xyz, fps_idx, bq_idx = sg.fused_sample_and_group(
         pts, m, ns, r, exact)
     ref = sg.sample_and_group_plain(pts, m, ns, r, exact)
@@ -361,6 +430,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # an object beyond shared memory
         sg.ball_group(torch.zeros((1, 20000, 6), device=dev),
                       ctr[:1], 4, 0.5)
+    # 4 (N C + 8 ns) bytes of the 227 KB: at C = 6, m = ns = 32 the largest
+    # object takes N = 9642 and N = 9643 is refused
+    ctr32 = torch.zeros((1, 32, 3), device=dev)
+    grouped, _ = sg.ball_group(torch.zeros((1, 9642, 6), device=dev),
+                               ctr32, 32, 0.2)
+    assert grouped.shape == (1, 32, 32, 6)
+    with pytest.raises(ValueError):
+        sg.ball_group(torch.zeros((1, 9643, 6), device=dev), ctr32, 32, 0.2)
 
     q = torch.randn((2, 8, 64), device=dev, dtype=torch.float16)
     pad = torch.zeros((2, 8), device=dev)

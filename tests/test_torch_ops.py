@@ -28,6 +28,39 @@ def test_fps_exact_indices(npoint):
     np.testing.assert_array_equal(got, want)
 
 
+def _fps_edge(kind, N, seed=3):
+    """Three objects of N points; the last is all padding (FPS repeats
+    index 0). "grid": coordinates on a coarse grid, so that many distances
+    tie and, at npoint = N, most steps pick among zero distances."""
+    rng = np.random.RandomState(seed)
+    if kind == "grid":
+        x = (rng.randint(-2, 3, size=(3, N, 3)) * 0.5).astype(np.float32)
+    else:
+        x = rng.randn(3, N, 3).astype(np.float32)
+    x[-1] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("npoint", ["one", "all"])
+@pytest.mark.parametrize("N", [17, 1000])
+@pytest.mark.parametrize("kind", ["randn", "grid"])
+def test_fps_plain_edge_cases_match_jax(kind, N, npoint):
+    """``fps_plain`` (the twin the ``fps`` kernel is held to bit for bit)
+    against JAX ``furthest_point_sample``: N no multiple of 32, npoint 1 and
+    N, ties and an all-pad object."""
+    from sceneverse_tpu_torch.ops.sa_forward import fps_plain
+
+    x = _fps_edge(kind, N)
+    m = 1 if npoint == "one" else N
+    want = np.asarray(jpo.furthest_point_sample(jnp.asarray(x), m))
+    ctr, idx = fps_plain(torch.tensor(x), m)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(
+        ctr.numpy(), np.asarray(jpo.gather_points(jnp.asarray(x),
+                                                  jnp.asarray(want))))
+    assert (want[-1] == 0).all()
+
+
 @pytest.mark.parametrize("radius,nsample", [(0.3, 8), (0.8, 16), (2.0, 128)])
 def test_ball_query_and_grouping_exact(radius, nsample):
     x = _pts(1)

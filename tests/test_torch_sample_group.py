@@ -67,6 +67,31 @@ def test_fused_sample_and_group_matches_jax(kind, G, N, C, m, ns, r, exact):
         assert (got[2][-1] == 0).all()
 
 
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("ball", ["full", "empty"])
+@pytest.mark.parametrize("C,ns", [(3, 16), (3, 64), (9, 16), (9, 64)])
+def test_ball_group_plain_edge_cases_match_jax(C, ns, ball, exact):
+    """``ball_group_plain`` (the twin the ``ball_group`` kernel is held to
+    bit for bit) around the JAX kernel's own centers: C 3 and 9, nsample 16
+    and 64 (N = 80), every ball full (truncated to nsample) or every ball
+    empty (radius 0: strict d2 < 0 holds nowhere, all slots point 0)."""
+    from sceneverse_tpu_torch.ops.sample_group import ball_group_plain
+
+    G, N, m = 1, 80, 8  # one object: the interpreter unrolls per object
+    pts = _points("random", G, N, C, seed=4)
+    r = 100.0 if ball == "full" else 0.0
+    want = [np.asarray(a) for a in jax_fused(
+        jnp.asarray(pts), m, ns, r, interpret=True, exact=exact)]
+    grouped, idx = ball_group_plain(torch.from_numpy(pts),
+                                    torch.from_numpy(want[1]), ns, r, exact)
+    np.testing.assert_array_equal(idx.numpy(), want[3])
+    np.testing.assert_array_equal(grouped.numpy(), want[0])
+    if ball == "full":
+        assert (want[3] == np.arange(ns)).all()
+    else:
+        assert (want[3] == 0).all()
+
+
 @pytest.mark.parametrize("G,N,C,m,ns,r", SHAPES)
 @pytest.mark.parametrize("exact", [True, False])
 def test_sample_and_group_backward_matches_jax_vjp(G, N, C, m, ns, r, exact):
