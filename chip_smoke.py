@@ -25,9 +25,10 @@ Phases (any failure exits non-zero; nothing is caught):
      the wrapper's host time) and ``fps`` with its instruction floor
      (computed, so only in ``chip_smoke_kernels.json``'s ``per_shape``);
      ``flash_fwd`` / ``flash_bwd`` (L = 50, 300, 130, with and
-     without the bias ``ab``; SDPA as their library yardstick; and
-     ``flash_fwd`` at L = 300 with whole trailing key tiles of pad and an
-     all-pad row, whose skipped tiles must change no bit) and
+     without the bias ``ab``; SDPA as their library yardstick; each row
+     with its ``device_ms``, both backward launches together; and both at
+     L = 300 with whole trailing key tiles of pad and an all-pad row, whose
+     skipped tiles must change no bit) and
      ``mha_fwd`` / ``mha_bwd`` (the four GPS attention shapes; their f32
      bound counts the products at the 3xTF32 tensor-core rate).
   4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
@@ -231,29 +232,48 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel, reps=5):
-    """Median device duration (torch.profiler) of the kernel whose name
-    holds ``kernel``, over the last ``reps`` of ``reps + 2`` traced calls
-    of ``fn`` after a warm-up (the tracer has been seen to drop a launch):
-    the kernel alone, without the wrapper's host time that a single call's
-    CUDA events include. Fewer than ``reps`` traced launches fail."""
+def device_ms(fn, *kernels, reps=5):
+    """Median device duration (torch.profiler) of one call of ``fn``: the
+    launches of the kernels whose names hold one of ``kernels``, summed per
+    call, over the last ``reps`` of ``reps + 2`` traced calls after a
+    warm-up: the kernels alone, without the wrapper's host time that a
+    single call's CUDA events include. The tracer has been seen to drop
+    launches late in a long process (once 6 of 7 of a window; cause not
+    known): a window with fewer than ``reps`` of a kernel is traced again,
+    three such windows fail, and each window opens and closes with 50 ms
+    of host sleep, in case the drops are launches that the trace's clock
+    places outside the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 2):
-            fn()
-        torch.cuda.synchronize()
-    traced = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
-                    for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and kernel in e.name)
-    if not reps <= len(traced) <= reps + 2:
-        raise AssertionError(f"device_ms: {len(traced)} launches of {kernel} "
-                             f"traced in {reps + 2} calls")
-    return statistics.median(d for _, d in traced[-reps:])
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(reps + 2):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        per_kernel = []
+        for kernel in kernels:
+            traced = sorted((e.time_range.start,
+                             e.time_range.elapsed_us() / 1e3)
+                            for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and kernel in e.name)
+            if len(traced) > reps + 2:
+                raise AssertionError(f"device_ms: {len(traced)} launches of "
+                                     f"{kernel} traced in {reps + 2} calls")
+            per_kernel.append([d for _, d in traced[-reps:]])
+        counts = [len(d) for d in per_kernel]
+        if min(counts) == reps:
+            return statistics.median(sum(call) for call in zip(*per_kernel))
+        # a window where the tracer dropped launches measures nothing
+        log(f"[device_ms] traced {counts} launches of {kernels} in "
+            f"{reps + 2} calls (window {attempt + 1} of 3)")
+    raise AssertionError(f"device_ms: fewer than {reps} launches of "
+                         f"{kernels} traced in three windows")
 
 
 def _err(got, want):
@@ -500,7 +520,9 @@ def phase_flash(table):
                       cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, pad, ab)),
                       TOL["bf16"],
                       bound(need + nbytes(o, l, m), 4 * work, "bf16"),
-                      lib_fwd)
+                      lib_fwd, device_ms=device_ms(
+                          lambda: fa.flash_fwd(q, k, v, pad, ab),
+                          "fa_fwd_kernel"))
             bargs = (q, k, v, pad, ab, ro, rl, rm, do)
             got = fa.flash_bwd(*bargs)
             again = fa.flash_bwd(*bargs)
@@ -513,7 +535,8 @@ def phase_flash(table):
                         key=lambda e: e[0] / max(e[1], 1e-30))
             # reads q, o, do, l, m, pad and the valid keys' k, v (+ ab);
             # writes dq, dk, dv (+ d ab); recomputes q.k and do.v and forms
-            # dv, dk, dq over the valid keys
+            # dv, dk, dq over the valid keys (di, passed between the two
+            # launches, is no input or output of the function)
             table.add("flash_bwd", tag, "bf16", *worst,
                       cuda_ms(lambda: fa.flash_bwd(*bargs)),
                       cuda_ms(lambda: fa.flash_bwd_plain(*bargs)),
@@ -521,20 +544,25 @@ def phase_flash(table):
                       bound(need + nbytes(ro, do, rl, rm)
                             + nbytes(q, k, v, ab),  # dq, dk, dv, d ab
                             10 * work, "bf16"),
-                      lib_bwd)
+                      lib_bwd, device_ms=device_ms(
+                          lambda: fa.flash_bwd(*bargs), "fa_dq_kernel",
+                          "fa_dkv_kernel"))
             del o, l, m, o2, l2, m2, ro, rl, rm, got, again, want
         torch.cuda.empty_cache()
     flash_pad_tail(table, g)
 
 
 def flash_pad_tail(table, g):
-    """``flash_fwd`` at L=300 with valid lengths of 1-127 keys, so that the
-    kernel's walk stops after the tile holding a row's last valid key and
-    skips whole trailing tiles of pad, and one batch row with no valid key
-    (it walks every tile and gets the mean of v). The skip is exact: the
-    kernel's output equals its own output on keys cut after that tile. The
-    bound counts the operations of the valid keys and the bytes of q, o, l,
-    m, the mask and the k, v the rows need (``key_bytes``)."""
+    """``flash_fwd`` and ``flash_bwd`` at L=300 with valid lengths of 1-127
+    keys, so that the kernels skip whole trailing key tiles of pad (the
+    forward and the dq launch stop their walks after the tile holding a
+    row's last valid key, the dk/dv launch writes zeros for a block of
+    such keys), and one batch row with no valid key (it walks every tile
+    and gets the mean of v). The skip is exact: each kernel's outputs equal
+    its own outputs on keys cut after that tile, and dk, dv are zero on the
+    skipped keys. The bounds count the operations of the valid keys and the
+    bytes of q, o, l, m, do, the mask and the k, v the rows need
+    (``key_bytes``), and of the outputs."""
     import torch
     import torch.nn.functional as F
 
@@ -559,8 +587,9 @@ def flash_pad_tail(table, g):
     if (o[0].float() - mean_v).abs().max() > 2.0 ** -7:
         raise AssertionError("flash_fwd pad tail: the all-pad row is not "
                              "the mean of v")
+    ends = [-(-int(valid[b]) // fa.BK) * fa.BK for b in range(B)]
     for b in range(1, 4):  # cut after the tile of the last valid key
-        end = -(-int(valid[b]) // fa.BK) * fa.BK
+        end = ends[b]
         cut = fa.flash_fwd(q[b:b + 1], k[b:b + 1, :, :end].contiguous(),
                            v[b:b + 1, :, :end].contiguous(),
                            pad[b:b + 1, :end].contiguous())
@@ -576,7 +605,55 @@ def flash_pad_tail(table, g):
               cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, pad)),
               TOL["bf16"],
               bound(nbytes(q, pad, o, l, m) + key_bytes(valid, L, k, v),
-                    4 * work, "bf16"), lib)
+                    4 * work, "bf16"), lib,
+              device_ms=device_ms(lambda: fa.flash_fwd(q, k, v, pad),
+                                  "fa_fwd_kernel"))
+    del o, l, m, again
+    do = torch.randn((B, H, L, dh), generator=g).to(dev, bf)
+    bargs = (q, k, v, pad, None, ro, rl, rm, do)
+    got = fa.flash_bwd(*bargs)
+    again = fa.flash_bwd(*bargs)
+    if not all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])):
+        raise AssertionError("flash_bwd pad tail: two runs differ")
+    want = fa.flash_bwd_plain(*bargs)
+    worst = max((_err(a, b) for a, b in zip(got[:3], want[:3])),
+                key=lambda e: e[0] / max(e[1], 1e-30))
+    for a, b in zip(got[:3], want[:3]):  # the all-pad row, every tile
+        err, scale = _err(a[0], b[0])
+        if not err <= TOL["bf16"] * scale:
+            raise AssertionError("flash_bwd pad tail: the all-pad row is "
+                                 f"{err / scale:.3e} from the twin")
+    dq, dk, dv, _ = got
+    for b in range(1, B):
+        if (dk[b, :, ends[b]:].any() or dv[b, :, ends[b]:].any()):
+            raise AssertionError(f"flash_bwd pad tail: row {b} has non-zero "
+                                 "dk or dv on its skipped pad keys")
+    for b in range(1, 4):
+        end, r = ends[b], slice(b, b + 1)
+        cut = fa.flash_bwd(q[r], k[r, :, :end].contiguous(),
+                           v[r, :, :end].contiguous(),
+                           pad[r, :end].contiguous(), None, ro[r], rl[r],
+                           rm[r], do[r])
+        if not (torch.equal(dq[r], cut[0])
+                and torch.equal(dk[r, :, :end], cut[1])
+                and torch.equal(dv[r, :, :end], cut[2])):
+            raise AssertionError(f"flash_bwd pad tail: row {b} differs from "
+                                 "its cut keys")
+    heads = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*heads, attn_mask=mask)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, heads, do,
+                                                  retain_graph=True))
+    del o_lib, heads
+    table.add("flash_bwd", "L=300 pad tail", "bf16", *worst,
+              cuda_ms(lambda: fa.flash_bwd(*bargs)),
+              cuda_ms(lambda: fa.flash_bwd_plain(*bargs)),
+              TOL["bf16"],
+              bound(nbytes(q, pad, ro, rl, rm, do)
+                    + key_bytes(valid, L, k, v)
+                    + nbytes(q, k, v),  # dq, dk, dv
+                    10 * work, "bf16"), lib_bwd,
+              device_ms=device_ms(lambda: fa.flash_bwd(*bargs),
+                                  "fa_dq_kernel", "fa_dkv_kernel"))
     torch.cuda.empty_cache()
 
 

@@ -4,8 +4,9 @@
 // Replaces (jax/experimental/pallas/ops/tpu/flash_attention.py, reached from
 // sceneverse_tpu/ops/pallas/attention.py:105):
 //   sv_flash_fwd  <- _flash_attention_kernel     (pallas_call :758)
-//   sv_flash_bwd  <- _flash_attention_dkv_kernel (pallas_call :1121), launch 1
-//                    _flash_attention_dq_kernel  (pallas_call :1456), launch 2
+//   sv_flash_bwd  <- _flash_attention_dq_kernel  (pallas_call :1456), launch 1,
+//                    with di = sum(o * do) (:273) folded in
+//                    _flash_attention_dkv_kernel (pallas_call :1121), launch 2
 //
 // Operands are (B*H, L, 64) bf16 rows (q pre-scaled by the wrapper); the
 // optional bias ab is (B*H, Lq, Lk) f32 and the optional key-pad mask (B, Lk)
@@ -20,27 +21,38 @@
 // so every sum over the walked dimension stays in one warp: no float
 // atomics, and two runs agree bit for bit.
 //
-// Forward design (the kernel on the exact mode's eval path). What bounds it
-// on this card at the GPS lengths (L <= 300, B*H = 384): bytes (q and the
-// valid keys' k, v in, o out, at 3.35 TB/s) over the products, and in
-// practice latency: each block walks at most 5 key tiles. So scores,
-// probabilities, the running max and sum and the output never leave
-// registers: mma.sync m16n8k16 bf16 fragments (documented
-// layouts, common.cuh), the q.k^T accumulators repacked in registers as
-// the A operand of p.v, row max and sum as two quad shuffles per row; Q is
-// loaded once into A fragments; K and V tiles (64 keys) are double-buffered
-// by cp.async, the next tile's load overlapping the current products; the
-// walk stops after the tile that holds the batch row's last valid key.
-// Shared memory 46,592 B (Q / output staging 9 KB, K and V 2 x 18 KB, the
-// keys' additive terms); ptxas: 128 registers at __launch_bounds__(128, 4),
-// 44 B of spill stores, 4 blocks (16 warps) per SM. Times, bounds and
-// SDPA's times beside them: chip_smoke.py's flash phase, PERF.md row 11a.
-// The backward launches keep the wmma design (16x16x16 fragments through
-// shared memory); no path reaches them.
+// Design (all three kernels). What bounds them on this card at the GPS
+// lengths (L <= 300, B*H = 384): bytes (q, the valid keys' k, v, and in the
+// backward o, do, at 3.35 TB/s) over the products, and in practice latency:
+// a block walks at most 5 tiles. So no (rows x tile) matrix of scores,
+// probabilities, dp or ds leaves registers: mma.sync m16n8k16 bf16
+// fragments (documented layouts, common.cuh), accumulators repacked in
+// registers as the A operand of the next product; the block's own rows are
+// loaded once into A fragments; the walked tiles are double-buffered by
+// cp.async, the next tile's load overlapping the current products; results
+// leave as bf16 rows through the warp's own staged rows, 16 bytes a store.
+// A key whose pad term is MASK_VALUE gets p = exp(s + MASK_VALUE - m) = 0
+// in any row with a valid key, so every tile past the one that holds the
+// batch row's last valid key is skipped exactly (a row with no valid key
+// walks every tile: its p is 1/Lk).
+//   forward: warp = 16 query rows; s = q k^T, online softmax (row max and
+//     sum two quad shuffles per row), p.v. Shared memory 46,592 B.
+//   backward launch 1 (dq, d ab, di): warp = 16 query rows; di = sum(o do)
+//     of its rows first (written for launch 2), then per key tile s = q k^T
+//     and dp = do v^T, p and ds = (dp - di) p in place, d ab stored from the
+//     accumulators (8-byte pairs), dq += bf16(ds) k with k through
+//     ldmatrix.trans; the walk stops after the last valid key's tile and
+//     d ab is zero past it.
+//   backward launch 2 (dk, dv): warp = 16 keys; per query tile the
+//     transposes s^T = k q^T and dp^T = v do^T, so that p^T and ds^T come
+//     out with keys as rows and repack as the A operands of dv += p^T do and
+//     dk += ds^T q; the tile's m, 1/l and di are staged in shared memory and
+//     read per column pair. A block whose 64 keys all lie past the last
+//     valid key writes zero dk, dv and returns.
+// Registers, spills, times and bounds: chip_smoke.py's build and flash
+// phases, PERF.md rows 11a-c.
 #include "common.cuh"
-#include <mma.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int FA_D = 64;        // head width
@@ -48,46 +60,133 @@ constexpr int FA_T = 64;        // rows per tile
 constexpr int FA_LD = FA_D + 8;  // bf16 row stride of a staged tile
 constexpr int FA_WARPS = 4;
 constexpr int FA_THREADS = FA_WARPS * 32;
-constexpr int FA_WLD = 16 + 8;  // bf16 row stride of a warp's 64 x 16 slab
+constexpr int FA_SUB = 32;      // walked rows per product step of the backward
 constexpr float FA_MASK = -0.7f * 3.4028234663852886e38f;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FaA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FaAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FaB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FaBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FaC;
-
-// rows [r0, r0 + 64) of one head's (L, 64) bf16 matrix -> shared [64][FA_LD],
-// zero past L (16-byte loads)
-__device__ __forceinline__ void fa_load_tile(const bf16* __restrict__ src, int r0, int L,
-                                             bf16* dst) {
+// rows [r0, r0 + 64) of one head's (L, 64) bf16 matrix -> shared [64][FA_LD]
+// by cp.async, zero past L
+__device__ __forceinline__ void fa_cp_tile(bf16* dst, const bf16* src, int r0, int L) {
   for (int i = threadIdx.x; i < FA_T * (FA_D / 8); i += FA_THREADS) {
     const int r = i >> 3, c8 = (i & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * FA_D + c8);
-    *reinterpret_cast<uint4*>(dst + r * FA_LD + c8) = v;
+    const bool ok = r0 + r < L;
+    sv_cp16(dst + r * FA_LD + c8, src + (size_t)(ok ? r0 + r : 0) * FA_D + c8, ok ? 16 : 0);
   }
 }
 
-// s [+ ab] + the pad mask, as the library forms the logits
-__device__ __forceinline__ float fa_logit(float s, const float* __restrict__ ab,
-                                          const unsigned char* __restrict__ pad, int row,
-                                          int key, int Lk) {
-  if (ab != nullptr) s = __fadd_rn(s, ab[(size_t)row * Lk + key]);
-  if (pad != nullptr) s = __fadd_rn(s, pad[key] ? FA_MASK : 0.f);
-  return s;
+// key tile j0.. of K and V by cp.async, and the keys' additive terms: 0,
+// the pad mask, or -inf past Lk
+__device__ __forceinline__ void fa_stage(bf16* kb, bf16* vb, float* kadd, int j0,
+                                         const bf16* kh, const bf16* vh,
+                                         const unsigned char* padb, int Lk) {
+  fa_cp_tile(kb, kh, j0, Lk);
+  fa_cp_tile(vb, vh, j0, Lk);
+  if (threadIdx.x < FA_T) {
+    const int key = j0 + threadIdx.x;
+    kadd[threadIdx.x] = key >= Lk ? -INFINITY : (padb != nullptr && padb[key]) ? FA_MASK : 0.f;
+  }
 }
 
-// acc (16 x 16) += a[16 x 64] (row-major, ld FA_LD) @ b^T, b rows n.. (ld FA_LD)
-__device__ __forceinline__ void fa_mm_abt(FaC& acc, const bf16* a, const bf16* b) {
-  FaA fa;
-  FaBT fb;
+// One past the batch row's last valid key, for every thread of the block:
+// Lk without a mask, and for a row whose keys are all pads (it takes every
+// key). red: FA_WARPS ints of shared memory. Holds a __syncthreads.
+__device__ __forceinline__ int fa_kv_end(const unsigned char* padb, int Lk, int* red) {
+  if (padb == nullptr) return Lk;
+  int last = -1;
+  for (int j = threadIdx.x; j < Lk; j += FA_THREADS)
+    if (!padb[j]) last = j;
+  last = __reduce_max_sync(SV_FULL_MASK, last);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = last;
+  __syncthreads();
+  for (int w = 0; w < FA_WARPS; ++w) last = max(last, red[w]);
+  return last >= 0 ? last + 1 : Lk;
+}
+
+// A fragments of the 16 staged rows at `rows` (row-major, ld FA_LD), all
+// four 16-column chunks
+__device__ __forceinline__ void fa_lda(uint32_t (&a)[FA_D / 16][4], const bf16* rows) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int k = 0; k < FA_D; k += 16) {
-    wmma::load_matrix_sync(fa, a + k, FA_LD);
-    wmma::load_matrix_sync(fb, b + k, FA_LD);
-    wmma::mma_sync(acc, fa, fb, acc);
+  for (int kk = 0; kk < FA_D / 16; ++kk)
+    sv_ldsm4(a[kk], rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * FA_LD + kk * 16 +
+                        (lane >> 4) * 8);
+}
+
+// acc (16 x 8 NB) += a (16 x 64) t^T, t = 8 NB staged rows of 64 (the n
+// index by row, k along the row)
+template <int NB>
+__device__ __forceinline__ void fa_mma_abt(float (&acc)[NB][4], const uint32_t (&a)[FA_D / 16][4],
+                                           const bf16* t) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < FA_D / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < NB / 2; ++np) {
+      uint32_t b[4];
+      sv_ldsm4(b, t + (np * 16 + (lane & 7) + (lane >> 4) * 8) * FA_LD + kk * 16 +
+                      ((lane >> 3) & 1) * 8);
+      sv_mma(acc[2 * np], a[kk], b[0], b[1]);
+      sv_mma(acc[2 * np + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// acc (16 x 64) += a (16 x 16 KC) t, t = 16 KC staged rows of 64 (the k
+// index by row, n along the row; ldmatrix.trans)
+template <int KC>
+__device__ __forceinline__ void fa_mma_ab(float (&acc)[FA_D / 8][4], const uint32_t (&a)[KC][4],
+                                          const bf16* t) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < FA_D / 16; ++dp) {
+      uint32_t b[4];
+      sv_ldsm4_t(b, t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * FA_LD + dp * 16 +
+                        (lane >> 4) * 8);
+      sv_mma(acc[2 * dp], a[kk], b[0], b[1]);
+      sv_mma(acc[2 * dp + 1], a[kk], b[2], b[3]);
+    }
+}
+
+template <int NB>
+__device__ __forceinline__ void fa_zero(float (&acc)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
+// a warp's 16 x 64 f32 accumulators -> bf16 rows r0.. (< L) of dst
+// (L x 64), through the warp's 16 staged rows w, as 16-byte stores
+__device__ __forceinline__ void fa_store_rows(const float (&acc)[FA_D / 8][4], bf16* w,
+                                              bf16* __restrict__ dst, int r0, int L) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int d = 0; d < FA_D / 8; ++d)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(w + (g + r * 8) * FA_LD + d * 8 + t4 * 2) =
+          sv_pack_bf16(acc[d][2 * r], acc[d][2 * r + 1]);
+  __syncwarp();
+  for (int i = lane; i < 16 * (FA_D / 8); i += 32) {
+    const int r = i >> 3, c8 = (i & 7) * 8;
+    if (r0 + r < L)
+      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * FA_D + c8) =
+          *reinterpret_cast<const uint4*>(w + r * FA_LD + c8);
   }
+}
+
+// ab at (row, key) and (row, key + 1) of one head's (Lq, Lk) bias, each 0
+// where it lies past Lq or Lk; one 8-byte load when Lk is even (key is even)
+__device__ __forceinline__ float2 fa_ab2(const float* __restrict__ abh, int row, int key, int Lq,
+                                         int Lk) {
+  float2 r = make_float2(0.f, 0.f);
+  if (row >= Lq || key >= Lk) return r;
+  const float* p = abh + (size_t)row * Lk + key;
+  if ((Lk & 1) == 0) return *reinterpret_cast<const float2*>(p);
+  r.x = p[0];
+  if (key + 1 < Lk) r.y = p[1];
+  return r;
 }
 
 // ---------------------------------------------------------------------------
@@ -104,24 +203,6 @@ struct FaFwdSmem {
   float kadd[2][FA_T];                   // per key: 0, the pad mask, or -inf past Lk
   int last[FA_WARPS];                    // the batch row's last valid key, per warp
 };
-
-// key tile t (keys 64t..) of K and V into buffer buf by cp.async, zero past
-// Lk, and the keys' additive terms
-__device__ __forceinline__ void fa_stage(FaFwdSmem& S, int buf, int j0, const bf16* kh,
-                                         const bf16* vh, const unsigned char* padb, int Lk) {
-  for (int i = threadIdx.x; i < FA_T * (FA_D / 8); i += FA_THREADS) {
-    const int r = i >> 3, c8 = (i & 7) * 8;
-    const bool ok = j0 + r < Lk;
-    const size_t off = (size_t)(ok ? j0 + r : 0) * FA_D + c8;
-    sv_cp16(S.k[buf] + r * FA_LD + c8, kh + off, ok ? 16 : 0);
-    sv_cp16(S.v[buf] + r * FA_LD + c8, vh + off, ok ? 16 : 0);
-  }
-  if (threadIdx.x < FA_T) {
-    const int key = j0 + threadIdx.x;
-    S.kadd[buf][threadIdx.x] =
-        key >= Lk ? -INFINITY : (padb != nullptr && padb[key]) ? FA_MASK : 0.f;
-  }
-}
 
 __global__ void __launch_bounds__(FA_THREADS, FA_FWD_MIN_BLOCKS)
 fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -140,71 +221,34 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* abh = ab ? ab + (size_t)bh * Lq * Lk : nullptr;
 
   // queries (once) and the first key tile in flight while the pad row is read
-  for (int i = tid; i < FA_T * (FA_D / 8); i += FA_THREADS) {
-    const int r = i >> 3, c8 = (i & 7) * 8;
-    const bool ok = q0 + r < Lq;
-    sv_cp16(S.q + r * FA_LD + c8, qh + (size_t)(ok ? q0 + r : 0) * FA_D + c8, ok ? 16 : 0);
-  }
-  fa_stage(S, 0, 0, kh, vh, padb, Lk);
+  fa_cp_tile(S.q, qh, q0, Lq);
+  fa_stage(S.k[0], S.v[0], S.kadd[0], 0, kh, vh, padb, Lk);
   sv_cp_commit();
   // The walk stops after the tile that holds the batch row's last valid key:
   // a later tile is all pads, so alpha = exp(0) = 1 and every p = exp(MASK -
-  // m) = 0 for a row with a valid key, and skipping it changes no bit. A
-  // row whose keys are all pads walks every tile (its output is the mean of v).
-  int kv_end = Lk;
-  if (padb != nullptr) {
-    int last = -1;
-    for (int j = tid; j < Lk; j += FA_THREADS)
-      if (!padb[j]) last = j;
-    last = __reduce_max_sync(SV_FULL_MASK, last);
-    if (lane == 0) S.last[warp] = last;
-    __syncthreads();
-    for (int w = 0; w < FA_WARPS; ++w) last = max(last, S.last[w]);
-    if (last >= 0) kv_end = last + 1;
-  }
-  const int ntiles = (kv_end + FA_T - 1) / FA_T;
+  // m) = 0 for a row with a valid key, and skipping it changes no bit.
+  const int ntiles = (fa_kv_end(padb, Lk, S.last) + FA_T - 1) / FA_T;
 
   uint32_t qa[FA_D / 16][4];  // A fragments of the warp's 16 query rows
   float oacc[FA_D / 8][4];    // running output, 8 column blocks
   float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
-#pragma unroll
-  for (int d = 0; d < FA_D / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
+  fa_zero(oacc);
 
   for (int t = 0; t < ntiles; ++t) {
     const int buf = t & 1, j0 = t * FA_T;
     if (t + 1 < ntiles) {  // the next tile loads while this one is used
-      fa_stage(S, buf ^ 1, j0 + FA_T, kh, vh, padb, Lk);
+      fa_stage(S.k[buf ^ 1], S.v[buf ^ 1], S.kadd[buf ^ 1], j0 + FA_T, kh, vh, padb, Lk);
       sv_cp_commit();
       sv_cp_wait<1>();
     } else {
       sv_cp_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < FA_D / 16; ++kk)
-        sv_ldsm4(qa[kk], S.q + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * FA_LD +
-                             kk * 16 + (lane >> 4) * 8);
-    }
+    if (t == 0) fa_lda(qa, S.q + warp * 16 * FA_LD);
     // scores s = q k^T of 16 rows x 64 keys
     float s[FA_T / 8][4];
-#pragma unroll
-    for (int n = 0; n < FA_T / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    const bf16* kb = S.k[buf];
-#pragma unroll
-    for (int kk = 0; kk < FA_D / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < FA_T / 16; ++np) {
-        uint32_t b[4];
-        sv_ldsm4(b, kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * FA_LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8);
-        sv_mma(s[2 * np], qa[kk], b[0], b[1]);
-        sv_mma(s[2 * np + 1], qa[kk], b[2], b[3]);
-      }
+    fa_zero(s);
+    fa_mma_abt(s, qa, S.k[buf]);
     // logits s [+ ab] + the key's term, and the rows' tile maxima
     const float* kadd = S.kadd[buf];
     float mx[2] = {-INFINITY, -INFINITY};
@@ -252,21 +296,8 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // the tile's bf16(p) v in f32, then o = o * alpha + it
     float pv[FA_D / 8][4];
-#pragma unroll
-    for (int d = 0; d < FA_D / 8; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) pv[d][e] = 0.f;
-    const bf16* vb = S.v[buf];
-#pragma unroll
-    for (int kk = 0; kk < FA_T / 16; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < FA_D / 16; ++dp) {
-        uint32_t b[4];
-        sv_ldsm4_t(b, vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * FA_LD + dp * 16 +
-                          (lane >> 4) * 8);
-        sv_mma(pv[2 * dp], pa[kk], b[0], b[1]);
-        sv_mma(pv[2 * dp + 1], pa[kk], b[2], b[3]);
-      }
+    fa_zero(pv);
+    fa_mma_ab(pv, pa, S.v[buf]);
 #pragma unroll
     for (int d = 0; d < FA_D / 8; ++d)
 #pragma unroll
@@ -274,24 +305,13 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         oacc[d][e] = __fadd_rn(__fmul_rn(oacc[d][e], alpha[e >> 1]), pv[d][e]);
     __syncthreads();  // buffer buf is free for the load of tile t + 2
   }
-  // o / l in bf16 through the warp's own rows of the query tile, then
-  // 16-byte rows out
-  bf16* ow = S.q + warp * 16 * FA_LD;
+  // o / l in bf16 through the warp's own rows of the query tile
+  const int row0 = q0 + warp * 16;
 #pragma unroll
   for (int d = 0; d < FA_D / 8; ++d)
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(ow + (g + r * 8) * FA_LD + d * 8 + t4 * 2) =
-          sv_pack_bf16(__fdiv_rn(oacc[d][2 * r], lrow[r]),
-                       __fdiv_rn(oacc[d][2 * r + 1], lrow[r]));
-  __syncwarp();
-  const int row0 = q0 + warp * 16;
-  for (int i = lane; i < 16 * (FA_D / 8); i += 32) {
-    const int r = i >> 3, c8 = (i & 7) * 8;
-    if (row0 + r < Lq)
-      *reinterpret_cast<uint4*>(o + ((size_t)bh * Lq + row0 + r) * FA_D + c8) =
-          *reinterpret_cast<const uint4*>(ow + r * FA_LD + c8);
-  }
+    for (int e = 0; e < 4; ++e) oacc[d][e] = __fdiv_rn(oacc[d][e], lrow[e >> 1]);
+  fa_store_rows(oacc, S.q + warp * 16 * FA_LD, o + (size_t)bh * Lq * FA_D, row0, Lq);
   if (t4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -305,34 +325,163 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, launch 1 (dk, dv). Grid (ceil(Lk / 64), B*H); warp w owns keys
-// 16w..16w+15 of the block's tile and walks every query tile.
+// Backward, launch 1 (di, dq, d ab). Grid (ceil(Lq / 64), B*H); warp w owns
+// query rows 16w..16w+15 (lane (g, t): rows g and g + 8) and walks the key
+// tiles up to the one that holds the batch row's last valid key, FA_SUB
+// keys per product step.
 // ---------------------------------------------------------------------------
-// a warp's 16 x 64 f32 result (4 fragments) -> rows key0.. of dst in bf16,
-// through the warp's scratch (1024 floats)
-__device__ __forceinline__ void fa_store_keys(const FaC (&acc)[FA_D / 16], float* scr,
-                                              bf16* __restrict__ dst, int key0, int Lk,
-                                              int lane) {
-  __syncwarp();
-#pragma unroll
-  for (int dt = 0; dt < FA_D / 16; ++dt)
-    wmma::store_matrix_sync(scr + dt * 16, acc[dt], FA_D, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * FA_D; e += 32) {
-    const int key = key0 + (e >> 6);
-    if (key < Lk) dst[(size_t)key * FA_D + (e & 63)] = __float2bfloat16_rn(scr[e]);
-  }
-}
+constexpr int FA_BWD_MIN_BLOCKS = 3;  // blocks per SM asked of ptxas (4 spill)
 
-struct FaDkvSmem {
-  bf16 k[FA_T * FA_LD], v[FA_T * FA_LD], q[FA_T * FA_LD], dout[FA_T * FA_LD];
-  float m[FA_T], linv[FA_T], di[FA_T];
-  float s[FA_WARPS][FA_T * 16];   // scores of (query rows, the warp's keys)
-  float dp[FA_WARPS][FA_T * 16];  // do . v^T
-  bf16 p[FA_WARPS][FA_T * FA_WLD], ds[FA_WARPS][FA_T * FA_WLD];
+struct FaDqSmem {
+  bf16 q[FA_T * FA_LD], dout[FA_T * FA_LD];     // the block's rows; q's then holds dq
+  bf16 k[2][FA_T * FA_LD], v[2][FA_T * FA_LD];  // double-buffered key tiles
+  float kadd[2][FA_T];
+  int last[FA_WARPS];
 };
 
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, FA_BWD_MIN_BLOCKS)
+fa_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const unsigned char* __restrict__ pad,
+             const float* __restrict__ ab, const float* __restrict__ lin,
+             const float* __restrict__ min_, const bf16* __restrict__ o,
+             const bf16* __restrict__ dout, float* __restrict__ diout, bf16* __restrict__ dq,
+             float* __restrict__ dab, int H, int Lq, int Lk) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  FaDqSmem& S = *reinterpret_cast<FaDqSmem*>(fa_smem);
+  const int bh = blockIdx.y, q0 = blockIdx.x * FA_T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* kh = k + (size_t)bh * Lk * FA_D;
+  const bf16* vh = v + (size_t)bh * Lk * FA_D;
+  const unsigned char* padb = pad ? pad + (size_t)(bh / H) * Lk : nullptr;
+  const float* abh = ab ? ab + (size_t)bh * Lq * Lk : nullptr;
+  float* dabh = dab ? dab + (size_t)bh * Lq * Lk : nullptr;
+
+  fa_cp_tile(S.q, q + (size_t)bh * Lq * FA_D, q0, Lq);
+  fa_cp_tile(S.dout, dout + (size_t)bh * Lq * FA_D, q0, Lq);
+  fa_stage(S.k[0], S.v[0], S.kadd[0], 0, kh, vh, padb, Lk);
+  sv_cp_commit();
+  // while they load: lane l's half row of o for di (row l / 2, columns
+  // 32 (l % 2)..), and rows g, g + 8's m and 1/l (0 past Lq: p = 0 there)
+  const int row0 = q0 + warp * 16, orow = row0 + (lane >> 1);
+  uint4 ov[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    ov[c] = orow < Lq ? *reinterpret_cast<const uint4*>(
+                            o + ((size_t)bh * Lq + orow) * FA_D + (lane & 1) * 32 + c * 8)
+                      : make_uint4(0u, 0u, 0u, 0u);
+  float mr[2], linv[2], dir[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + r * 8;
+    const bool ok = row < Lq;
+    mr[r] = ok ? min_[(size_t)bh * Lq + row] : 0.f;
+    linv[r] = ok ? __fdiv_rn(1.f, lin[(size_t)bh * Lq + row]) : 0.f;
+  }
+  // later tiles hold only pads: p = 0, so ds, d ab and their dq terms are 0
+  const int ntiles = (fa_kv_end(padb, Lk, S.last) + FA_T - 1) / FA_T;
+
+  uint32_t qa[FA_D / 16][4], da[FA_D / 16][4];  // A fragments of q and do rows
+  float dqa[FA_D / 8][4];
+  fa_zero(dqa);
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1, j0 = t * FA_T;
+    if (t + 1 < ntiles) {
+      fa_stage(S.k[buf ^ 1], S.v[buf ^ 1], S.kadd[buf ^ 1], j0 + FA_T, kh, vh, padb, Lk);
+      sv_cp_commit();
+      sv_cp_wait<1>();
+    } else {
+      sv_cp_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+      fa_lda(qa, S.q + warp * 16 * FA_LD);
+      fa_lda(da, S.dout + warp * 16 * FA_LD);
+      // di = sum(o do) in f32: a half row per lane, the pair's sum, then
+      // rows g and g + 8 from their lanes
+      const bf16* dr = S.dout + (warp * 16 + (lane >> 1)) * FA_LD + (lane & 1) * 32;
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint4 dv4 = *reinterpret_cast<const uint4*>(dr + c * 8);
+        const bf16* ob = reinterpret_cast<const bf16*>(&ov[c]);
+        const bf16* db = reinterpret_cast<const bf16*>(&dv4);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          part = __fadd_rn(part, __fmul_rn(__bfloat162float(ob[e]), __bfloat162float(db[e])));
+      }
+      const float tot = __fadd_rn(part, __shfl_xor_sync(SV_FULL_MASK, part, 1));
+      dir[0] = __shfl_sync(SV_FULL_MASK, tot, 2 * g);
+      dir[1] = __shfl_sync(SV_FULL_MASK, tot, 2 * g + 16);
+      if ((lane & 1) == 0 && orow < Lq) diout[(size_t)bh * Lq + orow] = tot;
+    }
+#pragma unroll
+    for (int h = 0; h < FA_T / FA_SUB; ++h) {
+      const bf16* ks = S.k[buf] + h * FA_SUB * FA_LD;
+      // s = q k^T and dp = do v^T of 16 rows x FA_SUB keys
+      float s[FA_SUB / 8][4], dp[FA_SUB / 8][4];
+      fa_zero(s);
+      fa_zero(dp);
+      fa_mma_abt(s, qa, ks);
+      fa_mma_abt(dp, da, S.v[buf] + h * FA_SUB * FA_LD);
+      // p = exp(s [+ ab] + the key's term - m) (1/l), ds = (dp - di) p;
+      // d ab from the accumulators; ds's bf16 pairs are the A fragments
+      // of ds.k
+      uint32_t dsa[FA_SUB / 16][4];
+#pragma unroll
+      for (int n = 0; n < FA_SUB / 8; ++n) {
+        const int c = h * FA_SUB + n * 8 + t4 * 2;  // key in the tile
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + g + r * 8;
+          float x0 = s[n][2 * r], x1 = s[n][2 * r + 1];
+          if (abh != nullptr) {
+            const float2 b = fa_ab2(abh, row, j0 + c, Lq, Lk);
+            x0 = __fadd_rn(x0, b.x);
+            x1 = __fadd_rn(x1, b.y);
+          }
+          x0 = __fadd_rn(x0, S.kadd[buf][c]);
+          x1 = __fadd_rn(x1, S.kadd[buf][c + 1]);
+          const float p0 = __fmul_rn(expf(__fsub_rn(x0, mr[r])), linv[r]);
+          const float p1 = __fmul_rn(expf(__fsub_rn(x1, mr[r])), linv[r]);
+          const float d0 = __fmul_rn(__fsub_rn(dp[n][2 * r], dir[r]), p0);
+          const float d1 = __fmul_rn(__fsub_rn(dp[n][2 * r + 1], dir[r]), p1);
+          if (dabh != nullptr && row < Lq && j0 + c < Lk) {
+            float* dst = dabh + (size_t)row * Lk + j0 + c;
+            if ((Lk & 1) == 0) {
+              *reinterpret_cast<float2*>(dst) = make_float2(d0, d1);
+            } else {
+              dst[0] = d0;
+              if (j0 + c + 1 < Lk) dst[1] = d1;
+            }
+          }
+          dsa[n >> 1][(n & 1) * 2 + r] = sv_pack_bf16(d0, d1);
+        }
+      }
+      fa_mma_ab(dqa, dsa, ks);
+    }
+    __syncthreads();  // buffer buf is free for the load of tile t + 2
+  }
+  if (dabh != nullptr)  // d ab of the skipped pad keys
+    for (int r = 0; r < 16 && row0 + r < Lq; ++r)
+      for (int key = ntiles * FA_T + lane; key < Lk; key += 32)
+        dabh[(size_t)(row0 + r) * Lk + key] = 0.f;
+  fa_store_rows(dqa, S.q + warp * 16 * FA_LD, dq + (size_t)bh * Lq * FA_D, row0, Lq);
+}
+
+// ---------------------------------------------------------------------------
+// Backward, launch 2 (dk, dv). Grid (ceil(Lk / 64), B*H); warp w owns keys
+// 16w..16w+15 of the block's tile (lane (g, t): keys g and g + 8) and walks
+// every query tile, FA_SUB query rows per product step.
+// ---------------------------------------------------------------------------
+struct FaDkvSmem {
+  bf16 k[FA_T * FA_LD], v[FA_T * FA_LD];        // the block's keys; then dk, dv
+  bf16 q[2][FA_T * FA_LD], dout[2][FA_T * FA_LD];  // double-buffered query tiles
+  float m[2][FA_T], linv[2][FA_T], di[2][FA_T];  // per query row, 0 past Lq
+  int last[FA_WARPS];
+};
+
+__global__ void __launch_bounds__(FA_THREADS, FA_BWD_MIN_BLOCKS)
 fa_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const unsigned char* __restrict__ pad,
               const float* __restrict__ ab, const float* __restrict__ lin,
@@ -342,181 +491,129 @@ fa_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char fa_smem[];
   FaDkvSmem& S = *reinterpret_cast<FaDkvSmem*>(fa_smem);
   const int bh = blockIdx.y, k0 = blockIdx.x * FA_T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const bf16* qh = q + (size_t)bh * Lq * FA_D;
   const bf16* doh = dout + (size_t)bh * Lq * FA_D;
   const unsigned char* padb = pad ? pad + (size_t)(bh / H) * Lk : nullptr;
   const float* abh = ab ? ab + (size_t)bh * Lq * Lk : nullptr;
-  fa_load_tile(k + (size_t)bh * Lk * FA_D, k0, Lk, S.k);
-  fa_load_tile(v + (size_t)bh * Lk * FA_D, k0, Lk, S.v);
-  float* sw = S.s[warp];
-  float* dpw = S.dp[warp];
-  bf16* pw = S.p[warp];
-  bf16* dsw = S.ds[warp];
-  FaC dk_acc[FA_D / 16], dv_acc[FA_D / 16];
-#pragma unroll
-  for (int t = 0; t < FA_D / 16; ++t) {
-    wmma::fill_fragment(dk_acc[t], 0.f);
-    wmma::fill_fragment(dv_acc[t], 0.f);
-  }
-  for (int q0 = 0; q0 < Lq; q0 += FA_T) {
-    __syncthreads();
-    fa_load_tile(qh, q0, Lq, S.q);
-    fa_load_tile(doh, q0, Lq, S.dout);
-    for (int i = threadIdx.x; i < FA_T; i += FA_THREADS) {
-      const int row = q0 + i;
-      const bool ok = row < Lq;
-      S.m[i] = ok ? min_[(size_t)bh * Lq + row] : 0.f;
-      S.linv[i] = ok ? __fdiv_rn(1.f, lin[(size_t)bh * Lq + row]) : 0.f;
-      S.di[i] = ok ? di[(size_t)bh * Lq + row] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rt = 0; rt < FA_T / 16; ++rt) {
-      FaC acc;
-      wmma::fill_fragment(acc, 0.f);
-      fa_mm_abt(acc, S.q + rt * 16 * FA_LD, S.k + warp * 16 * FA_LD);
-      wmma::store_matrix_sync(sw + rt * 16 * 16, acc, 16, wmma::mem_row_major);
-      wmma::fill_fragment(acc, 0.f);
-      fa_mm_abt(acc, S.dout + rt * 16 * FA_LD, S.v + warp * 16 * FA_LD);
-      wmma::store_matrix_sync(dpw + rt * 16 * 16, acc, 16, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int e = lane; e < FA_T * 16; e += 32) {
-      const int rr = e >> 4, c = e & 15, row = q0 + rr, key = k0 + warp * 16 + c;
-      float p = 0.f, ds = 0.f;
-      if (row < Lq && key < Lk) {
-        const float s = fa_logit(sw[e], abh, padb, row, key, Lk);
-        p = __fmul_rn(expf(__fsub_rn(s, S.m[rr])), S.linv[rr]);
-        ds = __fmul_rn(__fsub_rn(dpw[e], S.di[rr]), p);
-      }
-      pw[rr * FA_WLD + c] = __float2bfloat16_rn(p);
-      dsw[rr * FA_WLD + c] = __float2bfloat16_rn(ds);
-    }
-    __syncwarp();
-    // dv += bf16(p)^T do, dk += bf16(ds)^T q over the tile's 64 query rows
-#pragma unroll
-    for (int kk = 0; kk < FA_T; kk += 16) {
-      FaAT fp, fds;
-      wmma::load_matrix_sync(fp, pw + kk * FA_WLD, FA_WLD);
-      wmma::load_matrix_sync(fds, dsw + kk * FA_WLD, FA_WLD);
-#pragma unroll
-      for (int dt = 0; dt < FA_D / 16; ++dt) {
-        FaB fb;
-        wmma::load_matrix_sync(fb, S.dout + kk * FA_LD + dt * 16, FA_LD);
-        wmma::mma_sync(dv_acc[dt], fp, fb, dv_acc[dt]);
-        wmma::load_matrix_sync(fb, S.q + kk * FA_LD + dt * 16, FA_LD);
-        wmma::mma_sync(dk_acc[dt], fds, fb, dk_acc[dt]);
+  bf16* dkh = dk + (size_t)bh * Lk * FA_D;
+  bf16* dvh = dv + (size_t)bh * Lk * FA_D;
+
+  // keys past the batch row's last valid key have p = 0 in every query
+  // row: a block holding only such keys writes zeros
+  if (k0 >= fa_kv_end(padb, Lk, S.last)) {
+    for (int i = tid; i < FA_T * (FA_D / 8); i += FA_THREADS) {
+      const int r = i >> 3, c8 = (i & 7) * 8;
+      if (k0 + r < Lk) {
+        *reinterpret_cast<uint4*>(dkh + (size_t)(k0 + r) * FA_D + c8) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dvh + (size_t)(k0 + r) * FA_D + c8) = make_uint4(0, 0, 0, 0);
       }
     }
+    return;
   }
-  // the warp's 16 keys: dk, dv through the score scratch, rounded to bf16
+  fa_cp_tile(S.k, k + (size_t)bh * Lk * FA_D, k0, Lk);
+  fa_cp_tile(S.v, v + (size_t)bh * Lk * FA_D, k0, Lk);
+  fa_cp_tile(S.q[0], qh, 0, Lq);
+  fa_cp_tile(S.dout[0], doh, 0, Lq);
+  sv_cp_commit();
+  if (tid < FA_T) {  // the first query tile's row terms
+    const bool ok = tid < Lq;
+    S.m[0][tid] = ok ? min_[(size_t)bh * Lq + tid] : 0.f;
+    S.linv[0][tid] = ok ? __fdiv_rn(1.f, lin[(size_t)bh * Lq + tid]) : 0.f;
+    S.di[0][tid] = ok ? di[(size_t)bh * Lq + tid] : 0.f;
+  }
+  // keys g, g + 8 of the warp: 0, the pad mask, or -inf past Lk (p = 0)
   const int key0 = k0 + warp * 16;
-  fa_store_keys(dk_acc, sw, dk + (size_t)bh * Lk * FA_D, key0, Lk, lane);
-  fa_store_keys(dv_acc, sw, dv + (size_t)bh * Lk * FA_D, key0, Lk, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Backward, launch 2 (dq, d ab). Grid (ceil(Lq / 64), B*H); warp w owns query
-// rows 16w..16w+15 and walks every key tile.
-// ---------------------------------------------------------------------------
-struct FaDqSmem {
-  bf16 q[FA_T * FA_LD], dout[FA_T * FA_LD], k[FA_T * FA_LD], v[FA_T * FA_LD];
-  float s[FA_WARPS][16 * FA_T], dp[FA_WARPS][16 * FA_T];
-  bf16 ds[FA_WARPS][16 * FA_LD];
-};
-
-__global__ void __launch_bounds__(FA_THREADS)
-fa_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const unsigned char* __restrict__ pad,
-             const float* __restrict__ ab, const float* __restrict__ lin,
-             const float* __restrict__ min_, const bf16* __restrict__ dout,
-             const float* __restrict__ di, bf16* __restrict__ dq, float* __restrict__ dab,
-             int H, int Lq, int Lk) {
-  extern __shared__ __align__(128) unsigned char fa_smem[];
-  FaDqSmem& S = *reinterpret_cast<FaDqSmem*>(fa_smem);
-  const int bh = blockIdx.y, q0 = blockIdx.x * FA_T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* kh = k + (size_t)bh * Lk * FA_D;
-  const bf16* vh = v + (size_t)bh * Lk * FA_D;
-  const unsigned char* padb = pad ? pad + (size_t)(bh / H) * Lk : nullptr;
-  const float* abh = ab ? ab + (size_t)bh * Lq * Lk : nullptr;
-  float* dabh = dab ? dab + (size_t)bh * Lq * Lk : nullptr;
-  fa_load_tile(q + (size_t)bh * Lq * FA_D, q0, Lq, S.q);
-  fa_load_tile(dout + (size_t)bh * Lq * FA_D, q0, Lq, S.dout);
-  float* sw = S.s[warp];
-  float* dpw = S.dp[warp];
-  bf16* dsw = S.ds[warp];
-  // the warp walks its 16 rows, lane owning keys lane and lane + 32 of a
-  // tile; every lane keeps the 16 rows' m, 1/l and di
-  const int row0 = q0 + warp * 16;
-  float mr[16], linv[16], dir[16];
+  float kadd[2];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const bool ok = row0 + r < Lq;
-    const size_t i = (size_t)bh * Lq + row0 + r;
-    mr[r] = ok ? min_[i] : 0.f;
-    linv[r] = ok ? __fdiv_rn(1.f, lin[i]) : 0.f;
-    dir[r] = ok ? di[i] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + r * 8;
+    kadd[r] = key >= Lk ? -INFINITY : (padb != nullptr && padb[key]) ? FA_MASK : 0.f;
   }
-  FaC dq_acc[FA_D / 16];
-#pragma unroll
-  for (int t = 0; t < FA_D / 16; ++t) wmma::fill_fragment(dq_acc[t], 0.f);
-  for (int j0 = 0; j0 < Lk; j0 += FA_T) {
-    __syncthreads();
-    fa_load_tile(kh, j0, Lk, S.k);
-    fa_load_tile(vh, j0, Lk, S.v);
-    __syncthreads();
-#pragma unroll
-    for (int ct = 0; ct < FA_T / 16; ++ct) {
-      FaC acc;
-      wmma::fill_fragment(acc, 0.f);
-      fa_mm_abt(acc, S.q + warp * 16 * FA_LD, S.k + ct * 16 * FA_LD);
-      wmma::store_matrix_sync(sw + ct * 16, acc, FA_T, wmma::mem_row_major);
-      wmma::fill_fragment(acc, 0.f);
-      fa_mm_abt(acc, S.dout + warp * 16 * FA_LD, S.v + ct * 16 * FA_LD);
-      wmma::store_matrix_sync(dpw + ct * 16, acc, FA_T, wmma::mem_row_major);
+  const int ntiles = (Lq + FA_T - 1) / FA_T;
+
+  uint32_t ka[FA_D / 16][4], va[FA_D / 16][4];  // A fragments of the warp's k, v
+  float dka[FA_D / 8][4], dva[FA_D / 8][4];
+  fa_zero(dka);
+  fa_zero(dva);
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1, i0 = t * FA_T;
+    // the next tile's rows load during this tile's products; its row terms
+    // are read now and staged after them
+    const int nrow = i0 + FA_T + tid;
+    const bool nok = t + 1 < ntiles && tid < FA_T && nrow < Lq;
+    float nm = 0.f, nl = 0.f, nd = 0.f;
+    if (t + 1 < ntiles) {
+      fa_cp_tile(S.q[buf ^ 1], qh, i0 + FA_T, Lq);
+      fa_cp_tile(S.dout[buf ^ 1], doh, i0 + FA_T, Lq);
+      sv_cp_commit();
+      if (nok) {
+        nm = min_[(size_t)bh * Lq + nrow];
+        nl = lin[(size_t)bh * Lq + nrow];
+        nd = di[(size_t)bh * Lq + nrow];
+      }
+      sv_cp_wait<1>();
+    } else {
+      sv_cp_wait<0>();
     }
-    __syncwarp();
+    __syncthreads();
+    if (t == 0) {
+      fa_lda(ka, S.k + warp * 16 * FA_LD);
+      fa_lda(va, S.v + warp * 16 * FA_LD);
+    }
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
+    for (int h = 0; h < FA_T / FA_SUB; ++h) {
+      const bf16* qs = S.q[buf] + h * FA_SUB * FA_LD;
+      const bf16* dos = S.dout[buf] + h * FA_SUB * FA_LD;
+      // s^T = k q^T and dp^T = v do^T of 16 keys x FA_SUB queries
+      float st[FA_SUB / 8][4], dpt[FA_SUB / 8][4];
+      fa_zero(st);
+      fa_zero(dpt);
+      fa_mma_abt(st, ka, qs);
+      fa_mma_abt(dpt, va, dos);
+      // p^T and ds^T in place, the query's m, 1/l and di per column pair;
+      // their bf16 pairs are the A fragments of p^T do and ds^T q
+      uint32_t pa[FA_SUB / 16][4], dsa[FA_SUB / 16][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j, key = j0 + c;
-        float ds = 0.f;
-        if (row < Lq && key < Lk) {
-          const float s = fa_logit(sw[r * FA_T + c], abh, padb, row, key, Lk);
-          const float p = __fmul_rn(expf(__fsub_rn(s, mr[r])), linv[r]);
-          ds = __fmul_rn(__fsub_rn(dpw[r * FA_T + c], dir[r]), p);
-          if (dabh != nullptr) dabh[(size_t)row * Lk + key] = ds;
+      for (int n = 0; n < FA_SUB / 8; ++n) {
+        const int c = h * FA_SUB + n * 8 + t4 * 2;  // query in the tile
+        const float2 mm = *reinterpret_cast<const float2*>(&S.m[buf][c]);
+        const float2 li = *reinterpret_cast<const float2*>(&S.linv[buf][c]);
+        const float2 dd = *reinterpret_cast<const float2*>(&S.di[buf][c]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = key0 + g + r * 8;
+          float x0 = st[n][2 * r], x1 = st[n][2 * r + 1];
+          if (abh != nullptr) {
+            const int row = i0 + c;
+            if (key < Lk) {
+              if (row < Lq) x0 = __fadd_rn(x0, abh[(size_t)row * Lk + key]);
+              if (row + 1 < Lq) x1 = __fadd_rn(x1, abh[(size_t)(row + 1) * Lk + key]);
+            }
+          }
+          x0 = __fadd_rn(x0, kadd[r]);
+          x1 = __fadd_rn(x1, kadd[r]);
+          const float p0 = __fmul_rn(expf(__fsub_rn(x0, mm.x)), li.x);
+          const float p1 = __fmul_rn(expf(__fsub_rn(x1, mm.y)), li.y);
+          const float d0 = __fmul_rn(__fsub_rn(dpt[n][2 * r], dd.x), p0);
+          const float d1 = __fmul_rn(__fsub_rn(dpt[n][2 * r + 1], dd.y), p1);
+          pa[n >> 1][(n & 1) * 2 + r] = sv_pack_bf16(p0, p1);
+          dsa[n >> 1][(n & 1) * 2 + r] = sv_pack_bf16(d0, d1);
         }
-        dsw[r * FA_LD + c] = __float2bfloat16_rn(ds);
       }
+      fa_mma_ab(dva, pa, dos);
+      fa_mma_ab(dka, dsa, qs);
     }
-    __syncwarp();
-    // dq += bf16(ds) k over the tile's 64 keys
-#pragma unroll
-    for (int kk = 0; kk < FA_T; kk += 16) {
-      FaA fa;
-      wmma::load_matrix_sync(fa, dsw + kk, FA_LD);
-#pragma unroll
-      for (int dt = 0; dt < FA_D / 16; ++dt) {
-        FaB fb;
-        wmma::load_matrix_sync(fb, S.k + kk * FA_LD + dt * 16, FA_LD);
-        wmma::mma_sync(dq_acc[dt], fa, fb, dq_acc[dt]);
-      }
+    if (t + 1 < ntiles && tid < FA_T) {  // buf ^ 1 was last read before the previous barrier
+      S.m[buf ^ 1][tid] = nm;
+      S.linv[buf ^ 1][tid] = nok ? __fdiv_rn(1.f, nl) : 0.f;
+      S.di[buf ^ 1][tid] = nd;
     }
+    __syncthreads();  // buffer buf is free for the load of tile t + 2
   }
-  __syncwarp();
-#pragma unroll
-  for (int dt = 0; dt < FA_D / 16; ++dt)
-    wmma::store_matrix_sync(sw + dt * 16, dq_acc[dt], FA_D, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * FA_D; e += 32) {
-    const int row = row0 + (e >> 6);
-    if (row < Lq) dq[((size_t)bh * Lq + row) * FA_D + (e & 63)] = __float2bfloat16_rn(sw[e]);
-  }
+  fa_store_rows(dka, S.k + warp * 16 * FA_LD, dkh, key0, Lk);
+  fa_store_rows(dva, S.v + warp * 16 * FA_LD, dvh, key0, Lk);
 }
 
 template <typename K>
@@ -538,10 +635,11 @@ extern "C" int sv_flash_fwd(const void* q, const void* k, const void* v, const v
   return (int)cudaGetLastError();
 }
 
+// di (B*H*Lq floats) is written by launch 1 and read by launch 2
 extern "C" int sv_flash_bwd(const void* q, const void* k, const void* v, const void* pad,
-                            const float* ab, const float* l, const float* m, const void* dout,
-                            const float* di, void* dq, void* dk, void* dv, float* dab, int BH,
-                            int H, int Lq, int Lk, void* stream) {
+                            const float* ab, const float* l, const float* m, const void* o,
+                            const void* dout, float* di, void* dq, void* dk, void* dv,
+                            float* dab, int BH, int H, int Lq, int Lk, void* stream) {
   if (BH < 1 || Lq < 1 || Lk < 1 || BH > 65535) return (int)cudaErrorInvalidValue;
   const auto* Q = static_cast<const bf16*>(q);
   const auto* Kp = static_cast<const bf16*>(k);
@@ -549,18 +647,19 @@ extern "C" int sv_flash_bwd(const void* q, const void* k, const void* v, const v
   const auto* P = static_cast<const unsigned char*>(pad);
   const auto* DO = static_cast<const bf16*>(dout);
   cudaStream_t s = (cudaStream_t)stream;
-  size_t smem = sizeof(FaDkvSmem);
-  cudaError_t e = fa_smem_attr(fa_dkv_kernel, smem);
+  size_t smem = sizeof(FaDqSmem);
+  cudaError_t e = fa_smem_attr(fa_dq_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  fa_dq_kernel<<<dim3((Lq + FA_T - 1) / FA_T, BH), FA_THREADS, smem, s>>>(
+      Q, Kp, V, P, ab, l, m, static_cast<const bf16*>(o), DO, di, static_cast<bf16*>(dq), dab,
+      H, Lq, Lk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  smem = sizeof(FaDkvSmem);
+  e = fa_smem_attr(fa_dkv_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   fa_dkv_kernel<<<dim3((Lk + FA_T - 1) / FA_T, BH), FA_THREADS, smem, s>>>(
       Q, Kp, V, P, ab, l, m, DO, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Lq,
       Lk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  smem = sizeof(FaDqSmem);
-  e = fa_smem_attr(fa_dq_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  fa_dq_kernel<<<dim3((Lq + FA_T - 1) / FA_T, BH), FA_THREADS, smem, s>>>(
-      Q, Kp, V, P, ab, l, m, DO, di, static_cast<bf16*>(dq), dab, H, Lq, Lk);
   return (int)cudaGetLastError();
 }

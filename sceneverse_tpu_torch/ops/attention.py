@@ -25,13 +25,20 @@ Two hand-written CUDA kernels (``csrc/flash_attn.cu``) replace them:
     change no bit (alpha = 1, p = 0) of a row with a valid key.
 ``flash_bwd``
     the library's backward from the saved l and m: p = exp(s - m) * (1/l),
-    di = sum(o * do) (f32, computed beside the kernels, as the library
-    does), dv = bf16(p)^T do, dp = do v^T, ds = p (dp - di),
-    dk = bf16(ds)^T q, dq = bf16(ds) k, d ab = ds. Two launches so that no
-    float atomics are needed and two runs agree bit for bit: one grids over
-    key tiles and writes dk, dv; the other grids over query tiles and writes
-    dq and d ab. dq, dk and dv are rounded to bf16, as the library returns
-    them in q's type.
+    di = sum(o * do) (f32), dv = bf16(p)^T do, dp = do v^T,
+    ds = p (dp - di), dk = bf16(ds)^T q, dq = bf16(ds) k, d ab = ds. Two
+    launches, so that no float atomics are needed and two runs agree bit
+    for bit, both on the forward's design (mma.sync fragments in
+    registers, cp.async double buffers, 16-byte row stores). The first
+    grids over query tiles: each warp computes di of its 16 rows from o
+    and do (written for the second launch; the library computes it beside
+    its kernels) and writes dq and d ab. The second grids over key tiles
+    and writes dk and dv from the transposes k q^T and v do^T, so that
+    p^T and ds^T repack in registers as A operands. dq, dk and dv are
+    rounded to bf16, as the library returns them in q's type. Both skip
+    the key tiles past a batch row's last valid key exactly (p = 0 there:
+    zero dk, dv, d ab). Shared memory 55,824 and 56,848 bytes a block,
+    whatever the shape.
 
 Bound on the card: at the GPS lengths (L = 50-300, dh = 64) the forward
 moves q, k, v and o once (0.018 ms at L=300, B=32, H=12, at 3.35 TB/s)
@@ -140,7 +147,7 @@ def _lib():
                                  [P, P, P, P, P, P, P, P, I, I, I, I, P])
         lib.bwd_fn = _build.bind(
             lib, "sv_flash_bwd",
-            [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P])
+            [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P])
         lib._bound = True
     return lib
 
@@ -202,15 +209,15 @@ def flash_bwd(q, k, v, key_pad, ab, o, l, m, do):
         _build.require_cuda(t, f"flash.{name}", (torch.float32,), 3)
         if t.shape != (B, H, Lq):
             raise ValueError(f"flash.{name}: expected {(B, H, Lq)}")
-    # the library takes di = sum(o * do) beside its kernels (XLA), in f32
-    di = (o.float() * do.float()).sum(-1).contiguous()
+    # di = sum(o * do), written by the dq launch for the dk/dv launch
+    di = torch.empty_like(l)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dab = torch.empty_like(ab) if ab is not None else None
     code = _lib().bwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          _ptr(key_pad), _ptr(ab), l.data_ptr(), m.data_ptr(),
-                         do.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                         dk.data_ptr(), dv.data_ptr(), _ptr(dab), B * H, H,
-                         Lq, Lk, _build.stream_ptr(q))
+                         o.data_ptr(), do.data_ptr(), di.data_ptr(),
+                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         _ptr(dab), B * H, H, Lq, Lk, _build.stream_ptr(q))
     _build.LAUNCHES["flash_bwd"] += 1
     _build.check(code, "flash_bwd")
     return dq, dk, dv, dab

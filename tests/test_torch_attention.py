@@ -38,21 +38,33 @@ from sceneverse_tpu_torch.ops.softmax import softmax_lowp
 BF16_TOL, DAB_TOL = 2.0 ** -6, 2.0 ** -7
 
 
-def _case(L, seed=0):
+def _case(L, seed=0, valid=None):
+    """numpy q, k, v, pad, ab, do of (B, 2 heads, L, 64); pad random (the
+    first key valid) with one batch row, or with ``valid`` one row per
+    entry whose first ``valid[b]`` keys are valid."""
     rng = np.random.RandomState(seed)
-    B, H, dh = 1, 2, 64
+    B, H, dh = 1 if valid is None else len(valid), 2, 64
     q, k, v, do = (rng.randn(B, H, L, dh).astype(np.float32)
                    for _ in range(4))
-    pad = rng.rand(B, L) > 0.7
-    pad[:, 0] = False
+    if valid is None:
+        pad = rng.rand(B, L) > 0.7
+        pad[:, 0] = False
+    else:
+        pad = np.arange(L)[None] >= np.asarray(valid)[:, None]
     ab = rng.randn(B, H, L, L).astype(np.float32)
     return q, k, v, pad, ab, do
 
 
-@pytest.mark.parametrize("L", [130, 300])  # one 256 key block; 3 of 128
+@pytest.mark.parametrize("L,valid", [
+    pytest.param(130, None, id="130"),  # one 256 key block
+    pytest.param(300, None, id="300"),  # 3 of 128
+    # pad tails: rows that end inside the first, at the end of the first,
+    # just inside the second and inside the second 64-key tile
+    pytest.param(130, (1, 64, 65, 127), id="130-pad-tail"),
+])
 @pytest.mark.parametrize("use_ab", [False, True])
-def test_masked_mha_forward_and_vjp_match_jax(L, use_ab):
-    q, k, v, pad, ab, do = _case(L)
+def test_masked_mha_forward_and_vjp_match_jax(L, valid, use_ab):
+    q, k, v, pad, ab, do = _case(L, valid=valid)
     scale = 1.0 / math.sqrt(q.shape[-1])
 
     def jf(q, k, v, ab):
@@ -250,3 +262,35 @@ def test_flash_twin_skipping_trailing_pad_tiles_is_exact():
     to = tatt.masked_mha(*(torch.from_numpy(x) for x in (q, k, v)), pad,
                          sm_scale=0.125)
     assert np.abs(to.numpy() - jo).max() <= BF16_TOL * np.abs(jo).max()
+
+
+def test_flash_bwd_twin_pad_tiles_are_exact():
+    """The backward kernels skip the key tiles past a batch row's last
+    valid key (the dq launch stops its walk there and writes d ab = 0, the
+    dk/dv launch writes zero dk, dv for a block of such keys). The twin
+    shows that this is exact: at every pad key p = exp(s - 0.7 * FLT_MAX -
+    m) = 0, so dk, dv and d ab are exactly 0 there; and on keys cut after
+    the tile of the last valid key it gives the same dq bit for bit and
+    the same dk, dv and d ab on the kept keys."""
+    valid = (70, 129)  # tiles 2-4 and 3-4 of 64 keys hold only pads
+    q, k, v, pad, ab, do = _case(300, seed=6, valid=valid)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    tq, tk, tv, tdo = bf(q * 0.125), bf(k), bf(v), bf(do)
+    tpad, tab = torch.from_numpy(pad), torch.from_numpy(ab)
+    o, l, m = tatt.flash_fwd_plain(tq, tk, tv, tpad, tab)
+    dq, dk, dv, dab = tatt.flash_bwd_plain(tq, tk, tv, tpad, tab, o, l, m,
+                                           tdo)
+    for b, n in enumerate(valid):
+        assert (dk[b, :, n:] == 0).all() and (dv[b, :, n:] == 0).all()
+        assert (dab[b, ..., n:] == 0).all()
+        assert dk[b, :, :n].abs().max() > 0 and dv[b, :, :n].abs().max() > 0
+        end = -(-n // tatt.BK) * tatt.BK
+        rows = slice(b, b + 1)
+        cut = tatt.flash_bwd_plain(
+            tq[rows], tk[rows, :, :end], tv[rows, :, :end], tpad[rows, :end],
+            tab[rows, ..., :end].contiguous(), o[rows], l[rows], m[rows],
+            tdo[rows])
+        assert torch.equal(dq[rows], cut[0])
+        assert torch.equal(dk[rows, :, :end], cut[1])
+        assert torch.equal(dv[rows, :, :end], cut[2])
+        assert torch.equal(dab[rows, ..., :end], cut[3])

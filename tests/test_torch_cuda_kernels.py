@@ -526,14 +526,18 @@ def test_sa_dense_pool_matches_plain(dev, G):
 @pytest.mark.parametrize("Lq,Lk,valid", [
     (50, 50, None), (130, 130, None), (300, 300, None), (40, 72, None),
     (1, 9, None),
+    # B*H = 36 over 5 key tiles and 1 query tile, and the converse
+    (40, 300, None), (300, 40, None),
     (300, 300, (0, 1, 64, 65)),  # whole trailing key tiles of pad
 ])
 def test_flash_kernels_match_plain(dev, Lq, Lk, valid, use_ab):
     """bf16 outputs within 2e-2 of max|plain| (an element on a bf16
     rounding boundary may land one step apart); two runs bit-identical.
     With ``valid`` (each batch row's count of leading valid keys) the
-    forward equals, bit for bit, its own output on keys cut after the tile
-    of a row's last valid key, and the row with none gets the mean of v."""
+    forward and the backward equal, bit for bit, their own outputs on keys
+    cut after the tile of a row's last valid key; dk, dv and d ab are zero
+    on the whole pad tiles the kernels skip; the row with no valid key gets
+    the mean of v and its gradients match the twin's within 2e-2."""
     from sceneverse_tpu_torch.ops import _build
     from sceneverse_tpu_torch.ops import attention as fa
 
@@ -582,6 +586,61 @@ def test_flash_kernels_match_plain(dev, Lq, Lk, valid, use_ab):
         if b is not None:
             assert b.abs().max() > 0 and _rel(a, b) <= 2e-2
     assert _build.LAUNCHES["flash_bwd"] == before.get("flash_bwd", 0) + 2
+    if valid is None:
+        return
+    dq, dk, dv, dab = got
+    for a, b in zip(got, want):  # the all-pad row walks every tile
+        if b is not None:
+            assert _rel(a[0], b[0]) <= 2e-2
+    o, l, m = bargs[5:8]
+    for b in range(1, B):
+        end = -(-valid[b] // fa.BK) * fa.BK
+        assert (dk[b, :, end:] == 0).all() and (dv[b, :, end:] == 0).all()
+        if ab is not None:
+            assert (dab[b, ..., end:] == 0).all()
+        r = slice(b, b + 1)
+        cut = fa.flash_bwd(
+            q[r], k[r, :, :end].contiguous(), v[r, :, :end].contiguous(),
+            pad[r, :end].contiguous(),
+            None if ab is None else ab[r, ..., :end].contiguous(),
+            o[r], l[r], m[r], do[r])
+        assert torch.equal(dq[r], cut[0])
+        assert torch.equal(dk[r, :, :end], cut[1])
+        assert torch.equal(dv[r, :, :end], cut[2])
+        if ab is not None:
+            assert torch.equal(dab[r, ..., :end], cut[3])
+
+
+@pytest.mark.parametrize("use_ab", [False, True])
+def test_masked_mha_autograd_on_the_card(dev, use_ab):
+    """``masked_mha`` at L=130 through ``FlashAttention``: on the card one
+    ``flash_fwd`` and one ``flash_bwd``, and the gradients of q, k, v (and
+    ab, which requires one) within 2e-2 of the same autograd graph on the
+    CPU, where the wrappers run their plain twins (bf16 rounding points
+    shared, sums in another order)."""
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.ops import attention as fa
+
+    g = torch.Generator().manual_seed(7)
+    B, H, L, dh = 2, 12, 130, 64
+    q, k, v, do = (torch.randn((B, H, L, dh), generator=g) for _ in range(4))
+    ab = torch.randn((B, H, L, L), generator=g)
+    pad = torch.arange(L)[None] >= torch.tensor([[101], [37]])
+    outs = {}
+    for d in ("cpu", dev):
+        leaves = [t.to(d).detach().requires_grad_()
+                  for t in ((q, k, v, ab) if use_ab else (q, k, v))]
+        before = dict(_build.LAUNCHES)
+        o = fa.masked_mha(*leaves[:3], pad.to(d),
+                          leaves[3] if use_ab else None, sm_scale=0.125)
+        grads = torch.autograd.grad(o, leaves, do.to(d))
+        launched = {n: _build.LAUNCHES[n] - before.get(n, 0)
+                    for n in ("flash_fwd", "flash_bwd")}
+        assert launched == ({"flash_fwd": 0, "flash_bwd": 0} if d == "cpu"
+                            else {"flash_fwd": 1, "flash_bwd": 1})
+        outs[str(d)] = [t.detach().cpu() for t in (o, *grads)]
+    for a, b in zip(outs[str(dev)], outs["cpu"]):
+        assert b.abs().max() > 0 and _rel(a, b) <= 2e-2
 
 
 def test_exact_mode_forward_on_the_card_takes_the_new_kernels(dev,
