@@ -46,11 +46,26 @@ Phases (any failure exits non-zero; nothing is caught):
      train step as three fused levels need, the exact slice's kernels
      exactly as often per forward and per eval batch as its path needs
      (``check_exact_launches``); the unfrozen runs must move every
-     PointNet++ weight and BatchNorm statistic.
+     PointNet++ weight and BatchNorm statistic. The slices run at
+     ``solver.log_every=1``: each step's losses are fetched from the card
+     before the next step starts, so a row's ``step_s`` (host clock from
+     the step's start to the end of that fetch) is a synchronised time.
   5. entry: ``run_torch.main`` with ``mode=test pretrain_ckpt_path=`` the
      exact slice's ``best.pth`` loads every tensor and reproduces that
      slice's test metrics.
-  6. prints the kernel table as one JSON line, the card line, and last
+  6. trainer (``phase_trainer``), on the frozen f32 slice at full width
+     with dropout on: one train step with no remat, ``model.remat=true``
+     under "full" and under "dots" (bit-equal losses, gradients within
+     REMAT_TOL, equal generator states, the recompute's ``mha_fwd``
+     launches, a lower peak under "full"); gradient accumulation over 4
+     micro-steps at k = 2 (parameters still between updates, two updates,
+     the LR schedule over total // 2, the first update equal to one taken
+     by hand); VERDICT #2's 240-step ``OpenVocabTrainer`` run cut after
+     epoch 30 and resumed by a fresh trainer from ``ckpt_30.pth`` (the
+     resumed state bit-equal to the saved one, a falling loss, a rising
+     train accuracy; launch counts set to 0 before and read after); and
+     the ``profile.enabled``, ``debug.nans`` and ``eval.save`` switches.
+  7. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
@@ -1024,6 +1039,7 @@ def _run_slice(name, extra):
     # experiment dirs (config, metrics, best.pth) go under build/, which git
     # ignores, not into the small chiprun_out/
     args = SLICE_ARGS + extra + [
+        "solver.log_every=1",
         f"base_dir={os.path.join(REPO, 'build', 'smoke_runs', name)}"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1201,6 +1217,460 @@ def _run_entry(exact):
     return info
 
 
+# ------------------------------------------------------------ trainer phase
+# the multi-step run of the trainer phase: 4 steps an epoch, 60 epochs (240
+# steps), val every 10 epochs, ckpt_N every 30; trainer A is cut after epoch
+# TRAINER_CUT, as a preemption would cut it, and a fresh trainer B resumes
+TRAINER_RUN = ["data.synthetic_size=128", "solver.epochs=60",
+               "solver.epochs_per_eval=10", "solver.epochs_per_save=30"]
+TRAINER_CUT = 30
+# remat against no remat, per gradient tensor, on max|diff| / max|no remat|;
+# the trainer's accumulated (clipped) gradient at its first update against
+# the hand-taken mean's, per tensor, on max|diff| / max|hand|
+REMAT_TOL = 1e-5
+ACCUM_TOL = 1e-5
+# the first update's parameters against the hand-taken update's, per tensor:
+# at most ACCUM_SHARE of the elements off by more than 1e-5 * max|p| + 1e-2
+# * lr. AdamW's first step moves an element by lr * g / (|g| + eps), about
+# lr * sign(g): where g is near 0, the last-bit difference between the
+# running mean and the plain mean, or an atomic sum of the backward that
+# lands in another order (the no-remat run against itself shows them),
+# turns into a visible fraction of lr
+ACCUM_SHARE = 1e-3
+
+
+def _trainer(name, extra):
+    """A trainer of the frozen f32 slice at full width (``SLICE_ARGS``),
+    configured as ``run_torch.load_cfg`` configures one, its experiment
+    under build/smoke_runs/trainer/<name>."""
+    import run_torch
+    from sceneverse_tpu_torch.trainer.build import build_trainer
+
+    exp = os.path.join(REPO, "build", "smoke_runs", "trainer", name)
+    cfg = run_torch.load_cfg(SLICE_ARGS + extra + [f"exp_dir={exp}"])
+    return build_trainer(cfg)
+
+
+def _free():
+    """Collect what a finished sub-phase left (its trainers hold reference
+    cycles) and hand the cached blocks back."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_sum_ms(fn):
+    """(device ms, device events) of one call of ``fn`` after a warm-up:
+    every kernel, copy and fill it put on the card, summed
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def remat_extra_fwd(cfg):
+    """``mha_fwd`` launches that ``model.remat=true`` adds to a train step:
+    the recompute runs every fused attention layer of the language towers
+    (the utterance tower, and the split caption tower but for its
+    ``cls_only`` last layer, which takes the plain path) and of the
+    grounding tower once more."""
+    from sceneverse_tpu_torch.model.openvocab import cap_cls_only_enabled
+
+    L = int(cfg.model.language.args.num_hidden_layers)
+    G = int(cfg.model.grounding.args.num_layers)
+    caption = 0
+    if cfg.model.get("split_scene_cap_tower", False):
+        caption = L - 1 if cap_cls_only_enabled() else L
+    return L + caption + G
+
+
+def trainer_remat():
+    """One train step's forward and backward from the same weights, batch
+    and generator states, with no remat, ``model.remat=true`` under "full"
+    and under "dots" (dropout on): losses bit-equal, every gradient within
+    REMAT_TOL, both generators' states equal after the step, the recompute's
+    ``mha_fwd`` launches as ``remat_extra_fwd`` counts them and a lower peak
+    under "full"; for each way the CUDA-event time of the step (median of
+    3) and the device time of its kernels (``kernel_sum_ms``)."""
+    import torch
+
+    from sceneverse_tpu_torch.modules.utils import _streams
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.trainer.build import to_device
+
+    tag = "[trainer remat]"
+    t = _trainer("remat", [])
+    model = t.model
+    batch = to_device(next(iter(t.data_loaders["train"])), t.device)
+    gens = _streams(model)
+    start = [g.get_state() for g in gens]
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+    def step():
+        for g, state in zip(gens, start):
+            g.set_state(state)
+        t.optimizer.zero_grad()
+        model.train()
+        total, _ = t.loss(model(batch))
+        total.backward()
+        return total
+
+    res = {}
+    # "again": no remat once more, the run-to-run spread of the backward
+    for way in ("none", "again", "full", "dots"):
+        model.remat = (set() if way in ("none", "again")
+                       else {"language", "grounding"})
+        model.remat_policy = way if way in ("full", "dots") else "full"
+        step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        total = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: _build.LAUNCHES.get(k, 0) for k in ("mha_fwd", "mha_bwd")}
+        res[way] = {"loss": total.item(), "peak_gib": peak / 2 ** 30,
+                    "launches": launches,
+                    "states": [g.get_state() for g in gens],
+                    "grads": {n: p.grad.detach().cpu() for n, p in params
+                              if p.grad is not None}}
+        res[way]["step_ms"] = cuda_ms(step, reps=3)
+        res[way]["kernel_ms"], n_events = kernel_sum_ms(step)
+        log(f"{tag} {way}: loss {res[way]['loss']!r} peak "
+            f"{res[way]['peak_gib']:.3f} GiB, launches {launches}, "
+            f"forward + backward {res[way]['step_ms']:.3f} ms (CUDA events), "
+            f"device {res[way]['kernel_ms']:.3f} ms in {n_events} kernels, "
+            f"copies and fills (torch.profiler)")
+    ref = res["none"]
+    extra = remat_extra_fwd(t.cfg)
+    for way in ("again", "full", "dots"):
+        got = res[way]
+        if got["loss"] != ref["loss"]:
+            raise AssertionError(f"{tag} {way}: loss {got['loss']!r} vs "
+                                 f"{ref['loss']!r}")
+        if set(got["grads"]) != set(ref["grads"]):
+            raise AssertionError(f"{tag} {way}: other gradient tensors")
+        worst = max(((got["grads"][n] - g0).abs().max().item()
+                     / max(g0.abs().max().item(), 1e-30), n)
+                    for n, g0 in ref["grads"].items())
+        got["max_rel_grad_err"] = worst[0]
+        log(f"{tag} {way}: gradients "
+            + ("bit-equal to the first no-remat run" if worst[0] == 0.0 else
+               f"NOT bit-equal to the first no-remat run: max rel "
+               f"{worst[0]:.3e} at {worst[1]}"))
+        if not worst[0] <= REMAT_TOL:
+            raise AssertionError(f"{tag} {way}: gradient {worst[1]} off by "
+                                 f"{worst[0]} relative")
+        if not all(torch.equal(a, b) for a, b in zip(got["states"],
+                                                     ref["states"])):
+            raise AssertionError(f"{tag} {way}: generator states differ")
+        want = {"mha_fwd": ref["launches"]["mha_fwd"]
+                + (extra if way != "again" else 0),
+                "mha_bwd": ref["launches"]["mha_bwd"]}
+        if got["launches"] != want:
+            raise AssertionError(f"{tag} {way}: launches {got['launches']}, "
+                                 f"expected {want}")
+    if not res["full"]["peak_gib"] < ref["peak_gib"]:
+        raise AssertionError(f"{tag} full: peak {res['full']['peak_gib']} GiB "
+                             f"not below no remat's {ref['peak_gib']}")
+    return {way: {k: v for k, v in r.items() if k not in ("grads", "states")}
+            for way, r in res.items()}
+
+
+def trainer_accum():
+    """``solver.gradient_accumulation_steps=2`` over one epoch of 4
+    micro-steps (warmup 0, so the first update has a non-zero LR): the
+    parameters are bit-unchanged after micro-steps 1 and 3 and moved after
+    2 and 4, two optimizer steps, the logged LR is the schedule over
+    ``total // 2``, and the first update equals one taken by hand from the
+    mean of the first two micro-batches' gradients (a second model of the
+    same seeded build and generators, the same batches): the clipped
+    gradient AdamW takes within ACCUM_TOL, the parameters within
+    ACCUM_SHARE."""
+    import torch
+
+    from sceneverse_tpu_torch.model import build_model
+    from sceneverse_tpu_torch.modules.utils import set_generators
+    from sceneverse_tpu_torch.optim.build import GPSOptimizer
+    from sceneverse_tpu_torch.trainer.build import build_dataloader, to_device
+
+    tag = "[trainer accum]"
+    K = 2
+    t = _trainer("accum", [f"solver.gradient_accumulation_steps={K}",
+                           "solver.sched.args.warmup_steps=0",
+                           "solver.log_every=1"])
+    cfg = t.cfg
+    # by hand, first: the same first two batches (a loader of the same
+    # seed), the same dropout streams, the mean gradient, one clip + AdamW
+    hand = build_model(cfg, generator=torch.Generator().manual_seed(
+        t.seed)).to(t.device)
+    set_generators(hand, t.seed, t.device)
+    hand.train()
+    it = iter(build_dataloader(cfg, "train"))
+    grads = []
+    for _ in range(K):
+        hand.zero_grad(set_to_none=True)
+        total, _ = t.loss(hand(to_device(next(it), t.device)))
+        total.backward()
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in hand.named_parameters() if p.grad is not None})
+    hopt = GPSOptimizer(cfg, hand, t.total_steps // K)
+    for n, p in hand.named_parameters():
+        if n in grads[0]:
+            p.grad = (grads[0][n] + grads[1][n]) / K
+    hopt.step()
+    del grads
+
+    trainable = [(n, p) for n, p in t.model.named_parameters()
+                 if p.requires_grad]
+    changed, first, first_grad = [], {}, {}
+    inner = t.optimizer.step
+
+    def step():
+        before = [p.detach().clone() for _, p in trainable]
+        stepped = inner()
+        changed.append(sum(not torch.equal(b, p.detach())
+                           for b, (_, p) in zip(before, trainable)))
+        if stepped and not first:  # p.grad: the clipped mean AdamW took
+            first.update({n: p.detach().clone() for n, p in trainable})
+            first_grad.update({n: p.grad.detach().clone()
+                               for n, p in trainable if p.grad is not None})
+        return stepped
+
+    t.optimizer.step = step
+    rows = []
+    t.logger.log = lambda row, step=None: rows.append((step, row))
+    t.train_step(0)
+    log(f"{tag} trainable tensors changed after each micro-step: {changed} "
+        f"of {len(trainable)}; optimizer steps {t.optimizer.step_count}")
+    if len(changed) != 4 or changed[0] or changed[2] or not (
+            changed[1] and changed[3]):
+        raise AssertionError(f"{tag} micro-steps moved {changed} tensors")
+    if t.optimizer.step_count != 2:
+        raise AssertionError(f"{tag} {t.optimizer.step_count} updates")
+    n_upd = t.total_steps // K
+    args = dict(cfg.solver.sched.args)
+    floor = float(args.get("minimum_ratio", 1e-5))
+    for step_i, row in rows:
+        ratio = max(0.5 * (1 + math.cos(step_i / n_upd * math.pi)), floor)
+        for i, (_, base) in enumerate(t.optimizer.group_info):
+            got = row[f"train/lr/group_{i}"]
+            if not math.isclose(got, base * ratio, rel_tol=1e-12):
+                raise AssertionError(f"{tag} step {step_i} group {i}: LR "
+                                     f"{got} vs {base * ratio}")
+    log(f"{tag} logged LRs at steps {[s for s, _ in rows]} follow the "
+        f"schedule over {n_upd} = {t.total_steps} // {K} updates")
+    hp = dict(hand.named_parameters())
+    worst = max(((first_grad[n] - hp[n].grad).abs().max().item()
+                 / max(hp[n].grad.abs().max().item(), 1e-30), n)
+                for n in first_grad)
+    lrs = {id(p): g["lr"] for g in hopt.opt.param_groups for p in g["params"]}
+    share, off = 0.0, None
+    for n, p in hp.items():
+        if n not in first:
+            continue
+        err = (first[n] - p.detach()).abs()
+        tol = 1e-5 * first[n].abs().max() + 1e-2 * lrs.get(id(p), 0.0)
+        frac = (err > tol).float().mean().item()
+        if frac > share:
+            share, off = frac, n
+    log(f"{tag} first update vs by hand: clipped gradient max rel "
+        f"{worst[0]:.3e} ({worst[1]}); parameters, largest share of a "
+        f"tensor's elements off by more than 1e-5 max|p| + 1e-2 lr: "
+        f"{share:.3e} ({off})")
+    if not worst[0] <= ACCUM_TOL:
+        raise AssertionError(f"{tag} accumulated gradient off by {worst}")
+    if not share <= ACCUM_SHARE:
+        raise AssertionError(f"{tag} first update: {share} of {off} off")
+    return {"changed": changed, "updates": 2,
+            "grad_max_rel_err_vs_hand": worst[0],
+            "param_share_off_vs_hand": share}
+
+
+def _means(rows, key, n=20):
+    return [statistics.mean(r[key] for r in rows[i:i + n])
+            for i in range(0, len(rows), n)]
+
+
+def trainer_run():
+    """VERDICT #2: ``OpenVocabTrainer`` for 240 steps with a resume at step
+    120. Trainer A runs epochs 1-30 and writes ``ckpt_30.pth``; a fresh
+    trainer B with ``resume=True`` must then hold A's parameters, AdamW
+    moments, optimizer step and tracker bit for bit, and runs epochs 31-60.
+    The loss falls and the train-side PretrainEval target metric rises
+    (means of the first and last 20 steps); the val ScanReferEval metrics
+    are printed: the synthetic val split is random and disjoint from train.
+    The launch counts are set to 0 before A and read after B."""
+    import shutil
+
+    import torch
+
+    from sceneverse_tpu_torch.ops import _build
+
+    tag = "[trainer run]"
+    exp = os.path.join(REPO, "build", "smoke_runs", "trainer", "run")
+    shutil.rmtree(exp, ignore_errors=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    a = _trainer("run", TRAINER_RUN)
+    a.epochs = TRAINER_CUT
+    a.run()
+    t_a = time.perf_counter() - t0
+    saved = sorted(os.listdir(a.ckpt_path))
+    log(f"{tag} A: epochs 1-{TRAINER_CUT}, {a.global_step} steps in "
+        f"{t_a:.1f} s (host clock, evals and saves included); checkpoints "
+        f"{saved}")
+    b = _trainer("run", TRAINER_RUN + ["resume=True"])
+    if b.resumed_from is None or b.resumed_from.name != f"ckpt_{TRAINER_CUT}.pth":
+        raise AssertionError(f"{tag} B resumed from {b.resumed_from}")
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    same = [torch.equal(sa[k], sb[k]) for k in sa]
+    oa, ob = a.optimizer.opt.state_dict(), b.optimizer.opt.state_dict()
+    moments = [torch.equal(v, ob["state"][i][k])
+               for i, st in oa["state"].items() for k, v in st.items()]
+    checks = {
+        "parameters": all(same) and set(sa) == set(sb),
+        "adamw_state": all(moments) and oa["state"].keys() == ob["state"].keys(),
+        "optimizer_step": a.optimizer.step_count == b.optimizer.step_count,
+        "tracker": a.exp_tracker.state_dict() == b.exp_tracker.state_dict(),
+        "global_step": (a.global_step == b.global_step
+                        == TRAINER_CUT * len(a.data_loaders["train"])),
+    }
+    log(f"{tag} B resumed from {b.resumed_from.name}: {len(same)} state "
+        f"tensors, {len(moments)} AdamW tensors, optimizer step "
+        f"{b.optimizer.step_count}, tracker {b.exp_tracker.state_dict()}; "
+        f"equal to A's at the save: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} resumed state differs: {checks}")
+    hist_a, n_steps = a.history, b.epochs * len(b.data_loaders["train"])
+    del a, sa, sb, oa, ob
+    _free()
+    t0 = time.perf_counter()
+    b.run()
+    t_b = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    rows = hist_a["train"] + b.history["train"]
+    steps = [r["step"] for r in rows]
+    if steps != list(range(1, n_steps + 1)):
+        raise AssertionError(f"{tag} train rows at steps {steps}")
+    loss = _means(rows, "total_loss")
+    target = _means(rows, "target_metric")
+    log(f"{tag} B: epochs {TRAINER_CUT + 1}-{b.epochs} in {t_b:.1f} s "
+        f"(host clock); "
+        f"launches over A and B {launches}")
+    log(f"{tag} total loss, mean of each 20 steps: "
+        f"{[round(x, 4) for x in loss]}")
+    for key in ("target_metric", "lang_cls_acc_mask", "og_acc",
+                "obj_cls_post_acc", "obj_cls_raw_acc"):
+        if key in rows[0]:
+            log(f"{tag} train {key}, mean of each 20 steps: "
+                f"{[round(x, 4) for x in _means(rows, key)]}")
+    for r in hist_a["val"] + b.history["val"]:
+        log(f"{tag} val {json.dumps({k: round(v, 4) for k, v in r.items()})}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"{tag} loss did not fall: {loss}")
+    if not target[-1] > target[0]:
+        raise AssertionError(f"{tag} train accuracy did not rise: {target}")
+    for k in ("fps", "sa_group_mlp_pool", "mha_fwd", "mha_bwd"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"kernel {k} never launched on the trainer "
+                                 "path")
+    val = [r["target_metric"] for r in hist_a["val"] + b.history["val"]]
+    return {"launches": launches, "loss_means": loss,
+            "train_target_means": target, "val_target": val,
+            "seconds_a": t_a, "seconds_b": t_b}
+
+
+def trainer_switches():
+    """``profile.enabled=true profile.steps=3`` writes a trace holding the
+    card's kernels and ends epoch 0 after 3 steps; ``debug.nans=true`` lets a
+    clean step through and raises on a NaN put into the batch;
+    ``eval.save=true`` writes ``results.json`` with one row per val item."""
+    from pathlib import Path
+
+    import torch
+
+    from sceneverse_tpu_torch.trainer.build import to_device
+
+    tag = "[trainer switches]"
+    out = {}
+    t = _trainer("profile", ["profile.enabled=true", "profile.steps=3"])
+    t.train_step(0)
+    traces = sorted((Path(t.cfg.exp_dir) / "profile").glob("*.json"))
+    if t.global_step != 3 or len(traces) != 1:
+        raise AssertionError(f"{tag} profile: {t.global_step} steps, traces "
+                             f"{traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    log(f"{tag} profile: {traces[0].name}, {os.path.getsize(traces[0])} "
+        f"bytes, {len(kernels)} kernel events, e.g. "
+        f"{sorted(n for n in names if 'mha' in n)[:2]}")
+    if not kernels:
+        raise AssertionError(f"{tag} profile: no kernel in the trace")
+    out["profile_kernel_events"] = len(kernels)
+    del t, events, kernels
+    _free()
+
+    t = _trainer("nans", ["debug.nans=true"])
+    try:
+        batch = to_device(next(iter(t.data_loaders["train"])), t.device)
+        t.train_forward_backward(batch)
+        bad = dict(batch, obj_locs=batch["obj_locs"].clone())
+        bad["obj_locs"][0, 0, 0] = float("nan")
+        try:
+            t.train_forward_backward(bad)
+        except FloatingPointError as e:
+            log(f"{tag} debug.nans: a clean step went through; the NaN "
+                f"raised: {e}")
+            out["nans"] = str(e)
+        else:
+            raise AssertionError(f"{tag} debug.nans: the NaN went through")
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+    del t, batch, bad
+    _free()
+
+    t = _trainer("save", ["eval.save=true"])
+    t.eval_step(0)
+    path = os.path.join(t.cfg.exp_dir, "eval_results", "ScanReferEval",
+                        "results.json")
+    with open(path) as f:
+        results = json.load(f)
+    n_val = sum(len(ld.dataset) for ld in (
+        t.data_loaders["val"] if isinstance(t.data_loaders["val"], list)
+        else [t.data_loaders["val"]]))
+    ids = sorted(r["scene_id"] for r in results)
+    log(f"{tag} eval.save: {len(results)} rows for {n_val} val items, e.g. "
+        f"{results[0]}")
+    if ids != list(range(n_val)) or not all(
+            len(r["bbox"]) == 6 for r in results):
+        raise AssertionError(f"{tag} eval.save: rows {len(results)}")
+    out["eval_save_rows"] = len(results)
+    return out
+
+
+def phase_trainer():
+    """The trainer: remat, accumulation, the 240-step run with a resume at
+    step 120, and the profile / NaN / eval.save switches."""
+    out = {}
+    for name, sub in (("remat", trainer_remat), ("accum", trainer_accum),
+                      ("run", trainer_run), ("switches", trainer_switches)):
+        out[name] = sub()
+        _free()
+    return out
+
+
 def main():
     sys.path.insert(0, REPO)
     card = phase_env()
@@ -1216,6 +1686,9 @@ def main():
     slices = {name: phase_slice(name, extra, env)
               for name, (extra, _, env) in PATHS.items()}
     entry = phase_entry(slices["frozen_exact"])
+    trainer = phase_trainer()
+    paths = {p: s["launches"] for p, s in slices.items()}
+    paths["trainer"] = trainer["run"]["launches"]
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]
@@ -1227,7 +1700,7 @@ def main():
                   if "+ab" not in r["shape"] and "+all-in" not in r["shape"]]
         head = max([r for r in shapes if r["dtype"] == "f32"] or shapes,
                    key=lambda r: r["ms"])
-        by_path = {p: s["launches"].get(name, 0) for p, s in slices.items()}
+        by_path = {p: n.get(name, 0) for p, n in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1239,7 +1712,8 @@ def main():
                else {})})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
-                   "slices": slices, "entry": entry, "card": card}, f,
+                   "slices": slices, "entry": entry, "trainer": trainer,
+                   "card": card}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,9 +5,11 @@ Usage:
     python run_torch.py --config-path configs/final \
         --config-name synthetic_pretrain [key.sub=value ...]
 
-Loads the YAML config with dotted overrides, names and creates the
-experiment directory from ``naming_keywords``, snapshots the resolved
-config, builds the port's trainer and runs it. The trainer runs on the CUDA
+Loads the YAML config with dotted overrides (with ``resume=True`` and an
+``exp_dir``, the config snapshotted there, as run.py does), names and
+creates the experiment directory from ``naming_keywords``, snapshots the
+resolved config, builds the port's trainer, runs it and waits for its
+checkpoint writes. The trainer runs on the CUDA
 card, and raises when there is none, unless ``device=cpu`` asks for the CPU.
 Imports nothing of JAX or of the JAX package.
 """
@@ -58,6 +60,11 @@ def load_cfg(argv=None):
     if not cfg_file.exists():
         raise FileNotFoundError(f"{cfg_file} not found")
     cfg = load_config(str(cfg_file), args.overrides)
+    if cfg.get("resume", False) and cfg.get("exp_dir"):
+        saved = Path(cfg.exp_dir) / "config.yaml"
+        if saved.exists():  # the run's own config (reference run.py:14-18)
+            cfg = load_config(str(saved), args.overrides)
+            cfg.resume = True
     if not cfg.get("exp_dir"):
         base = cfg.get("base_dir") or "outputs"
         cfg.exp_dir = str(Path(base) / compose_exp_name(cfg))
@@ -71,12 +78,14 @@ def main(argv=None):
     os.makedirs(cfg.exp_dir, exist_ok=True)
     save_config(cfg, str(Path(cfg.exp_dir) / "config.yaml"))
 
+    from sceneverse_tpu_torch.ckpt.checkpoint import wait_for_checkpoints
     from sceneverse_tpu_torch.trainer.build import build_trainer
 
     trainer = build_trainer(cfg)
     print(f"[run_torch] trainer {type(trainer).__name__} on {trainer.device}, "
           f"exp_dir {cfg.exp_dir}", flush=True)
     results = trainer.run()
+    wait_for_checkpoints()
     return {"results": results, "trainer": trainer}
 
 

@@ -1,11 +1,18 @@
 """Evaluator protocol (port of sceneverse_tpu/evaluator/build.py):
 ``batch_metrics`` returns ``{name: (value, count)}`` with ``include_count``
 (device tensors, no host sync), ``update`` accumulates, ``record``
-ratio-reduces on the host once and tracks the best ``target_metric``."""
+ratio-reduces on the host once and tracks the best ``target_metric``.
+With ``eval.save`` an evaluator gathers per-item rows in ``eval_results``
+and ``record`` writes them to
+``<exp_dir>/eval_results/<Evaluator>/results.json`` (JAX
+``evaluator/build.py:64-73,109-111``)."""
 
 from __future__ import annotations
 
-import numpy as np
+import json
+import math
+from pathlib import Path
+
 import torch
 
 from sceneverse_tpu_torch.registry import Registry
@@ -24,12 +31,16 @@ class BaseEvaluator:
 
     def __init__(self, cfg, **kwargs):
         self.cfg = cfg
-        self.best_result = -np.inf
-        if cfg.select("eval.save", False):
-            raise NotImplementedError("eval.save is not ported yet")
+        self.best_result = -math.inf
+        self.save = bool(cfg.select("eval.save", False))
+        exp_dir = cfg.get("exp_dir") or "."
+        self.save_dir = Path(exp_dir) / "eval_results" / type(self).__name__
+        if self.save:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         self.reset()
 
     def reset(self):
+        self.eval_results = []
         self.eval_dict = {}
 
     def batch_metrics(self, data_dict, include_count=False):
@@ -45,6 +56,9 @@ class BaseEvaluator:
     def record(self):
         out = {k: float(v) / max(float(c), 1.0)
                for k, (v, c) in self.eval_dict.items()}
+        if self.save:
+            with (self.save_dir / "results.json").open("w") as f:
+                json.dump(self.eval_results, f)
         out["target_metric"] = out[self.target_metric]
         is_best = out["target_metric"] > self.best_result
         if is_best:
@@ -54,11 +68,20 @@ class BaseEvaluator:
         return is_best, out
 
 
-def build_eval(cfg, **kwargs):
-    if cfg.select("eval.train") is None:
-        raise NotImplementedError("only the train/val evaluator dict is ported")
+def get_eval(name, cfg, **kwargs):
     from sceneverse_tpu_torch.evaluator import pretrain_eval, scanrefer_eval
 
     del pretrain_eval, scanrefer_eval
-    return {"train": EVALUATOR_REGISTRY.get(cfg.eval.train.name)(cfg),
-            "val": EVALUATOR_REGISTRY.get(cfg.eval.val.name)(cfg)}
+    return EVALUATOR_REGISTRY.get(name)(cfg, **kwargs)
+
+
+def build_eval(cfg, **kwargs):
+    """JAX ``evaluator/build.py:128-140``: the {"train", "val"} dict or one
+    evaluator by ``eval.name`` (the per-val-dataset form is not ported)."""
+    if cfg.select("eval.train") is not None:
+        return {"train": get_eval(cfg.eval.train.name, cfg, **kwargs),
+                "val": get_eval(cfg.eval.val.name, cfg, **kwargs)}
+    if cfg.select("eval.name") is not None:
+        return get_eval(cfg.eval.name, cfg, **kwargs)
+    raise NotImplementedError(
+        "the per-val-dataset evaluators are not ported yet")

@@ -1,7 +1,9 @@
 """ScanRefer grounding evaluator (port of
 sceneverse_tpu/evaluator/scanrefer_eval.py): Acc@0.25/0.5 overall and on the
 unique / multiple splits, og accuracy and the per-object class accuracies of
-every (B, O, C) ``*_logits`` output."""
+every (B, O, C) ``*_logits`` output; with ``eval.save`` one row per item
+(its id, the predicted object's box, whether it is the target), as JAX
+``scanrefer_eval.py:57-66``."""
 
 from __future__ import annotations
 
@@ -50,4 +52,15 @@ class ScanReferEval(BaseEvaluator):
             "og_acc": ((og_pred == d["tgt_object_id"][:, 0]).sum(), total),
         }
         metrics.update(obj_cls_accs(d))
+        if self.save and "data_idx" in data_dict:
+            pred = og_pred.cpu().numpy()
+            boxes = d["obj_boxes"].cpu().numpy()
+            tgt = d["tgt_object_id"][:, 0].cpu().numpy()
+            for i, item_id in enumerate(list(data_dict["data_idx"])):
+                self.eval_results.append({
+                    "scene_id": item_id if isinstance(item_id, str)
+                    else int(item_id),
+                    "bbox": boxes[i][pred[i]].tolist(),
+                    "correct": bool(pred[i] == tgt[i]),
+                })
         return metrics if include_count else ratio_metrics(metrics)

@@ -3,7 +3,12 @@ reference model/openvocab.py:11-126): BERT text tower (utterance, and the
 scene caption as a second call when ``split_scene_cap_tower``, [CLS]-only
 in its final layer under ``SCENEVERSE_CAP_CLS_ONLY``),
 the PointNet++ + spatial vision tower, the unified encoder and the
-configured heads; og3d logits are fused objects . fused [CLS] text."""
+configured heads; og3d logits are fused objects . fused [CLS] text.
+
+``model.remat`` / ``model.remat_policy`` (JAX :57-81) recompute the named
+towers' activations in the backward (``modules/utils.py::remat``): ``true``
+is {language, grounding}, a bare string one tower, a list as given; the
+policy is "full" or "dots"."""
 
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from torch import nn
 
 from sceneverse_tpu_torch.registry import Registry
 from sceneverse_tpu_torch.modules.build import build_module
-from sceneverse_tpu_torch.modules.utils import init_bert_weights
+from sceneverse_tpu_torch.modules.utils import init_bert_weights, remat
 
 MODEL_REGISTRY = Registry("model")
 
@@ -54,6 +59,21 @@ class OpenVocab(nn.Module):
         self.split_scene_cap_tower = bool(
             cfg.model.get("split_scene_cap_tower", False))
         self.lm_max_predictions = int(cfg.model.get("lm_max_predictions", 0))
+        remat_cfg = cfg.model.get("remat", None)
+        if remat_cfg is True:
+            self.remat = {"language", "grounding"}
+        elif isinstance(remat_cfg, str):  # a bare override, model.remat=vision
+            self.remat = {remat_cfg}
+        else:
+            self.remat = set(remat_cfg or [])
+        unknown = self.remat - {"language", "vision", "grounding"}
+        if unknown:
+            raise ValueError(f"model.remat: unknown towers {sorted(unknown)}; "
+                             "valid: language, vision, grounding")
+        self.remat_policy = str(cfg.model.get("remat_policy", "full"))
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"model.remat_policy: {self.remat_policy!r}; "
+                             "valid: full, dots")
         if generator is None:
             generator = torch.Generator().manual_seed(
                 int(cfg.get("rng_seed", 42)))
@@ -93,6 +113,23 @@ class OpenVocab(nn.Module):
         return []
 
     # ---------------------------------------------------------------- forward
+    def _tower(self, name, module, *args, call=None):
+        """``(call or module)(*args)``, rematerialised when ``name`` is in
+        ``model.remat`` and gradients are recorded (JAX :94-98)."""
+        call = call or module
+        if name in self.remat and torch.is_grad_enabled():
+            return remat(module, call, *args, policy=self.remat_policy)
+        return call(*args)
+
+    def _lang_cls(self, ids, masks):
+        """The caption tower, read only at [CLS]; ``cls_only`` stays a
+        closed-over Python bool through remat (JAX :120-126)."""
+        if not cap_cls_only_enabled():
+            return self._tower("language", self.lang_encoder, ids, masks)[:, 0]
+        enc = self.lang_encoder
+        return self._tower("language", enc, ids, masks,
+                           call=lambda a, b: enc(a, b, cls_only=True))[:, 0]
+
     def _lm_head_inputs(self, language_fuse, data_dict, out):
         """Stable gather of the K masked text positions before the LM head
         (:155-172 there); overrides out['masked_lm_labels'] to match."""
@@ -113,33 +150,35 @@ class OpenVocab(nn.Module):
             sc_ids, sc_masks = (data_dict["scene_txt_ids"],
                                 data_dict["scene_txt_masks"])
             if self.split_scene_cap_tower:
-                lang_feats = self.lang_encoder(txt_ids, txt_masks)
-                out["scene_text_embed"] = self.lang_encoder(
-                    sc_ids, sc_masks, cls_only=cap_cls_only_enabled())[:, 0]
+                lang_feats = self._tower("language", self.lang_encoder,
+                                         txt_ids, txt_masks)
+                out["scene_text_embed"] = self._lang_cls(sc_ids, sc_masks)
             else:
                 B, L = txt_ids.shape
                 M = max(L, sc_ids.shape[1])
                 pad = lambda x: F.pad(x, (0, M - x.shape[1]))
-                feats = self.lang_encoder(
+                feats = self._tower(
+                    "language", self.lang_encoder,
                     torch.cat([pad(txt_ids), pad(sc_ids)], 0),
                     torch.cat([pad(txt_masks), pad(sc_masks)], 0))
                 lang_feats = feats[:B, :L]
                 out["scene_text_embed"] = feats[B:, 0]
         else:
-            lang_feats = self.lang_encoder(txt_ids, txt_masks)
+            lang_feats = self._tower("language", self.lang_encoder, txt_ids,
+                                     txt_masks)
 
-        point_feats, point_pre, obj_cls_raw_logits = self.point_encoder(
-            data_dict["obj_fts"].float(), data_dict["obj_locs"],
-            data_dict["obj_masks"], data_dict["obj_sem_masks"],
-            data_dict.get("obj_labels"))
+        point_feats, point_pre, obj_cls_raw_logits = self._tower(
+            "vision", self.point_encoder, data_dict["obj_fts"].float(),
+            data_dict["obj_locs"], data_dict["obj_masks"],
+            data_dict["obj_sem_masks"], data_dict.get("obj_labels"))
         if self.use_scene_cap:
             out["scene_embed"] = point_feats.mean(dim=1)
         if self.inter == "before":
             out["inter_text_embed"] = lang_feats[:, 0]
             out["inter_obj_embeds"] = point_feats
-        language_fuse, point_fuse = self.unified_encoder(
-            lang_feats, txt_masks, point_feats, data_dict["obj_locs"],
-            data_dict["obj_masks"])
+        language_fuse, point_fuse = self._tower(
+            "grounding", self.unified_encoder, lang_feats, txt_masks,
+            point_feats, data_dict["obj_locs"], data_dict["obj_masks"])
         if self.inter != "before":
             out["inter_text_embed"] = language_fuse[:, 0]
             out["inter_obj_embeds"] = point_fuse

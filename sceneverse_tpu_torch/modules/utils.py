@@ -1,12 +1,16 @@
 """Module helpers: explicit-generator dropout, attention dropout seeds,
-BERT-style init (sceneverse_tpu modules/weights.py: normal(0.02) for Linear
-and Embedding weights, zero biases, unit LayerNorm), activations."""
+tower rematerialisation that replays them, BERT-style init (sceneverse_tpu
+modules/weights.py: normal(0.02) for Linear and Embedding weights, zero
+biases, unit LayerNorm), activations."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 BERT_STD = 0.02
 
@@ -62,6 +66,95 @@ def set_generators(model: nn.Module, seed: int, device) -> None:
             m.generator = dev
         elif isinstance(m, AttentionSeed):
             m.seed_generator = host
+
+
+def _streams(module: nn.Module) -> list:
+    """The distinct explicit generators of ``module``'s dropouts and
+    attention seeds (``set_generators``)."""
+    gens = {}
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            g = m.generator
+        elif isinstance(m, AttentionSeed):
+            g = m.seed_generator
+        else:
+            continue
+        if g is not None:
+            gens[id(g)] = g
+    return list(gens.values())
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    unbatched products, recompute everything else (batched ``bmm``
+    included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _Replay:
+    """The recompute context of ``remat``: the module's random streams as
+    they stood at the tower's entry for the recompute, then back where they
+    were just before it; the running statistics of its training-mode
+    BatchNorms back as they were, so the recompute moves them no second
+    time. ``inner`` is the policy's own recompute context."""
+
+    def __init__(self, gens, entry, stats, inner):
+        self.gens, self.entry, self.stats, self.inner = gens, entry, stats, inner
+
+    def __enter__(self):
+        self.before = [g.get_state() for g in self.gens]
+        self.kept = [t.clone() for t in self.stats]
+        for g, state in zip(self.gens, self.entry):
+            g.set_state(state)
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            return self.inner.__exit__(*exc)
+        finally:
+            for g, state in zip(self.gens, self.before):
+                g.set_state(state)
+            with torch.no_grad():
+                for t, kept in zip(self.stats, self.kept):
+                    t.copy_(kept)
+
+
+def remat(module: nn.Module, fn, *args, policy: str = "full"):
+    """``fn(*args)`` (a call of ``module``) with its activations dropped in
+    the forward and recomputed in the backward:
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, under
+    ``policy`` "full" (recompute everything) or "dots" (selective: keep the
+    unbatched products' outputs, ``_dots_policy``).
+
+    The checkpoint replays only torch's default generators. The port's
+    dropouts and attention seeds draw from their own (``set_generators``),
+    so their states at the entry are kept and set again for the recompute
+    (the same dropout masks and kernel seeds as the forward), then put back
+    as they were before it (no later draw moves). JAX gets both from its
+    functional keys."""
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat policy {policy!r}; valid: full, dots")
+    gens = _streams(module)
+    entry = [g.get_state() for g in gens]
+    stats = [t for m in module.modules()
+             if m.training and getattr(m, "running_mean", None) is not None
+             for t in (m.running_mean, m.running_var,
+                       getattr(m, "num_batches_tracked", None))
+             if t is not None]
+
+    def contexts():
+        if policy == "dots":
+            fwd, rec = _ckpt.create_selective_checkpoint_contexts(
+                _dots_policy)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _Replay(gens, entry, stats, rec)
+
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=contexts)
 
 
 @torch.no_grad()

@@ -11,7 +11,14 @@ every group are not optimised. Matches the JAX package's optax chain:
     gets a materialised zero gradient before the step (the unused
     ``sem_cls_embed_layer`` / ``sem_mask_embeddings`` of the vision tower);
   * the LR of step ``t`` (0-based) is ``base_lr * schedule(t)``: the warmup
-    makes it exactly 0 at step 0.
+    makes it exactly 0 at step 0;
+  * ``accum`` > 1 is ``optax.MultiSteps(chain(clip, adamw), accum)``: each
+    ``step`` folds the gradients into a running mean (``acc += (g - acc) /
+    (n + 1)``, MultiSteps' own update) and leaves the parameters as they
+    are; every ``accum``-th call clips that mean, takes the AdamW step at
+    ``schedule(step_count)`` and clears it. ``step_count`` counts optimizer
+    steps, and the state dict carries the mean and the micro-step, so a
+    resume inside a group continues exactly.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ def _no_decay(model: nn.Module, name: str) -> bool:
 
 
 class GPSOptimizer:
-    def __init__(self, cfg, model: nn.Module, total_steps: int):
+    def __init__(self, cfg, model: nn.Module, total_steps: int,
+                 accum: int = 1):
         if cfg.solver.optim.name != "AdamW":
             raise NotImplementedError(
                 f"optimizer {cfg.solver.optim.name!r} is not ported yet")
@@ -67,21 +75,34 @@ class GPSOptimizer:
         self.opt = torch.optim.AdamW(param_groups, betas=betas, eps=eps,
                                      **args)
         self.step_count = 0
+        self.accum = int(accum)
+        self.mini_step = 0
+        self.acc = None  # the running mean of a group's gradients
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
 
     @torch.no_grad()
     def step(self):
+        """One micro-step; returns whether the parameters moved."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        gnorm = None
+        grads = [p.grad for p in self.params]
+        if self.accum > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step += 1
+            if self.mini_step < self.accum:
+                return False
+            torch._foreach_copy_(grads, self.acc)
         if self.grad_norm is not None:
             # optax clip_by_global_norm: g / ||g|| * max_norm when ||g|| >=
             # max_norm, else g unchanged (divide and multiply by 1); two
             # multi-tensor launches instead of a few per parameter
-            grads = [p.grad for p in self.params]
             gnorm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
             keep = gnorm < float(self.grad_norm)
@@ -94,7 +115,19 @@ class GPSOptimizer:
             g["lr"] = g["base_lr"] * ratio
         self.opt.step()
         self.step_count += 1
-        return gnorm
+        if self.acc is not None:
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
+        return True
 
     def state_dict(self):
-        return {"opt": self.opt.state_dict(), "step_count": self.step_count}
+        return {"opt": self.opt.state_dict(), "step_count": self.step_count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.step_count = int(state["step_count"])
+        self.mini_step = int(state.get("mini_step", 0))
+        acc = state.get("acc")
+        self.acc = (None if acc is None else
+                    [a.to(p.device, p.dtype) for a, p in zip(acc, self.params)])

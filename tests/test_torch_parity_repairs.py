@@ -360,11 +360,13 @@ def test_eval_loop_records_each_loader(best):
 
     loaders = [[{"a": np.zeros(1)}] * 3, [{"a": np.zeros(1)}] * 2]
     logged = []
+    ev = _Recorder(best)
     fake = types.SimpleNamespace(
-        evaluator={"val": _Recorder(best)}, data_loaders={"val": loaders},
+        evaluator={"val": ev}, _val_evaluator=lambda: ev,
+        data_loaders={"val": loaders},
         device="cpu", forward=lambda b: {}, history={"val": []},
         log=lambda r, mode: logged.append((mode, dict(r))))
-    got = OpenVocabTrainer._eval_loop(fake, "val")
+    got = OpenVocabTrainer._eval_loop(fake, "val", "val")
     want, jlogged = _jax_eval_loop(loaders, _Recorder(best))
     assert got == want
     assert logged == jlogged and len(logged) == 2
