@@ -65,7 +65,29 @@ Phases (any failure exits non-zero; nothing is caught):
      resumed state bit-equal to the saved one, a falling loss, a rising
      train accuracy; launch counts set to 0 before and read after); and
      the ``profile.enabled``, ``debug.nans`` and ``eval.save`` switches.
-  7. prints the kernel table as one JSON line, the card line, and last
+  7. data (``phase_data``): ``configs/final/all_pretrain.yaml`` as it
+     stands (batch 64, 4 spawned loader workers, the five families'
+     datasets and wrappers) through ``run_torch.main`` from an on-disk
+     SceneVerse tree the port's ``data/fixture.py`` writes under build/
+     (1 scan, 90 objects of 1200 points, about 2,500 train items), only the
+     data roots, ``num_gpu=1``, ``data.args.pc_type=gt``, one epoch and a
+     fetch per step set: every loss finite, ``fps``, ``sa_group_mlp_pool``,
+     ``mha_fwd`` and ``mha_bwd`` launched exactly as often per train step
+     and per eval batch as the frozen path needs and nothing else, val and
+     test metrics in [0, 1], and on the val split every metric 1 when
+     oracle logits replace the model's (``check_eval``, which also logs
+     what the trained model picks); the same, for MATERIALIZED_STEPS
+     train steps, with ``data.args.materialized=fast`` over stores built
+     beforehand; ``mha_fwd`` / ``mha_bwd`` (f32 tolerance, two runs
+     bit-equal) on the operands one train step on a pipeline batch hands
+     them (B = 64: its text and object padding, its 'cond' gate);
+     ``fps`` (bit-equal) and ``sa_group_mlp_pool`` (SA_TOL) against their
+     twins at SA1 and SA2 on that batch (64 x 80 objects, pad objects of
+     all 1.0 included) and, for comparison, on standard-normal objects,
+     each with its in-ball pair share and device time; the train loader's
+     scenes/s alone at 0 and 4 workers and materialized; one train step's
+     device time on that batch against both runs' steps (busy share).
+  8. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
@@ -911,14 +933,79 @@ def check_argmax(tag, x, params, ns, pooled, arg, wpooled, warg):
                              f"(share {share}), gap {worst}")
 
 
-def phase_mha(table):
-    """``mha_fwd`` and ``mha_bwd`` against their twins at the four GPS
-    attention shapes (B=32, H=12, dh=64), f32 and bf16, each run twice and
-    required bit-identical. Their f32 bound counts the products at the
-    3xTF32 rate of the tensor cores (``PEAK["3xtf32"]``), the way the
+def check_mha(table, label, dname, q, k, v, pad, sw, locs, do, H, scale,
+              rate, seed):
+    """``mha_fwd`` and ``mha_bwd`` on one call's operands against their
+    twins, each run twice and required bit-identical, with a row each in the
+    table: the kernels' and the twins' times, SDPA's on the same heads,
+    bias and dropout, and the bound. The f32 bound counts the products at
+    the 3xTF32 rate of the tensor cores (``PEAK["3xtf32"]``), the way the
     kernels form them."""
     import torch
     import torch.nn.functional as F
+
+    from sceneverse_tpu_torch.ops import mha
+
+    B, L, D = q.shape
+    T, dh = k.shape[1], D // H
+    args = (q, k, v, pad, sw, locs, H, scale, rate, seed)
+    o, lse = mha.mha_fwd(*args)
+    o2, lse2 = mha.mha_fwd(*args)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"mha_fwd {label} {dname}: two runs differ")
+    o_ref, lse_ref = mha.mha_fwd_plain(*args)
+    lerr, lscale = _err(lse, lse_ref)
+    if lerr > TOL["f32"] * lscale:
+        raise AssertionError(f"mha_fwd lse {label} {dname}: {lerr}")
+    # library yardstick: one SDPA call on the same heads, the same additive
+    # bias (pad [+ the precomputed 'cond' gate]) and dropout
+    heads = [t.view(B, -1, H, dh).transpose(1, 2).detach().requires_grad_()
+             for t in (q, k, v)]
+    bias = (mha._scores(torch.zeros_like(q), k, pad, sw, locs, H, scale)[0]
+            if sw is not None else pad[:, None, None, :]).to(q.dtype)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            *heads, attn_mask=bias, dropout_p=rate, scale=scale)
+
+    lib_fwd = cuda_ms(sdpa)
+    o_lib = sdpa()
+    do_h = do.view(B, L, H, dh).transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, heads, do_h,
+                                                  retain_graph=True))
+    del o_lib
+    el = q.element_size()
+    qkvo = 2 * B * (L + T) * D * el
+    gate_b = nbytes(sw, locs)
+    work = B * H * L * T * dh
+    peak = "3xtf32" if q.dtype == torch.float32 else dname
+    table.add("mha_fwd", label, dname, *_err(o, o_ref),
+              cuda_ms(lambda: mha.mha_fwd(*args)),
+              cuda_ms(lambda: mha.mha_fwd_plain(*args)), TOL[dname],
+              bound(qkvo + nbytes(pad, lse) + gate_b, 4 * work, peak),
+              lib_fwd)
+    bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, scale, rate, seed)
+    got = mha.mha_bwd(*bargs)
+    again = mha.mha_bwd(*bargs)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)
+               if b is not None):
+        raise AssertionError(f"mha_bwd {label} {dname}: two runs differ")
+    want = mha.mha_bwd_plain(*bargs)
+    errs = [_err(a, b) for a, b in zip(got, want) if b is not None]
+    worst = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+    # reads q, k, v, do, o, lse, pad (+ gate); writes dq, dk, dv (+ dsw);
+    # recomputes q.k and do.v and forms dv, dq, dk
+    table.add("mha_bwd", label, dname, *worst,
+              cuda_ms(lambda: mha.mha_bwd(*bargs)),
+              cuda_ms(lambda: mha.mha_bwd_plain(*bargs)), TOL[dname],
+              bound(2 * qkvo + nbytes(pad, lse) + gate_b + nbytes(sw),
+                    10 * work, peak), lib_bwd)
+
+
+def phase_mha(table):
+    """``mha_fwd`` and ``mha_bwd`` against their twins at the four GPS
+    attention shapes (B=32, H=12, dh=64), f32 and bf16 (``check_mha``)."""
+    import torch
 
     from sceneverse_tpu_torch.ops import mha
 
@@ -942,66 +1029,10 @@ def phase_mha(table):
         locs = (torch.randn((B, L, L, 5), generator=g).to(dev) if gate
                 else None)
         base = [torch.randn((B, L, D), generator=g).to(dev) for _ in range(4)]
-        scale = 1.0 / math.sqrt(dh)
         for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v, do = (t.to(dtype) for t in base)
-            args = (q, k, v, pad, sw, locs, H, scale, rate, 77)
-            o, lse = mha.mha_fwd(*args)
-            o2, lse2 = mha.mha_fwd(*args)
-            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
-                raise AssertionError(f"mha_fwd {label} {dname}: two runs "
-                                     "differ")
-            o_ref, lse_ref = mha.mha_fwd_plain(*args)
-            lerr, lscale = _err(lse, lse_ref)
-            if lerr > TOL["f32"] * lscale:
-                raise AssertionError(f"mha_fwd lse {label} {dname}: {lerr}")
-            # library yardstick: one SDPA call on the same heads, the same
-            # additive bias (pad [+ the precomputed 'cond' gate]) and dropout
-            heads = [t.view(B, L, H, dh).transpose(1, 2).detach()
-                     .requires_grad_() for t in (q, k, v)]
-            bias = (mha._scores(torch.zeros_like(q), k, pad, sw, locs, H,
-                                scale)[0] if gate
-                    else pad[:, None, None, :]).to(dtype)
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    *heads, attn_mask=bias, dropout_p=rate, scale=scale)
-
-            lib_fwd = cuda_ms(sdpa)
-            o_lib = sdpa()
-            do_h = do.view(B, L, H, dh).transpose(1, 2)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-                o_lib, heads, do_h, retain_graph=True))
-            del o_lib
-            el = q.element_size()
-            qkvo = 4 * B * L * D * el
-            gate_b = nbytes(sw, locs)
-            work = B * H * L * L * dh
-            peak = "3xtf32" if dtype == torch.float32 else dname
-            table.add("mha_fwd", label, dname, *_err(o, o_ref),
-                      cuda_ms(lambda: mha.mha_fwd(*args)),
-                      cuda_ms(lambda: mha.mha_fwd_plain(*args)), TOL[dname],
-                      bound(qkvo + nbytes(pad, lse) + gate_b, 4 * work, peak),
-                      lib_fwd)
-            bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, scale,
-                     rate, 77)
-            got = mha.mha_bwd(*bargs)
-            again = mha.mha_bwd(*bargs)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)
-                       if b is not None):
-                raise AssertionError(f"mha_bwd {label} {dname}: two runs "
-                                     "differ")
-            want = mha.mha_bwd_plain(*bargs)
-            errs = [_err(a, b) for a, b in zip(got, want) if b is not None]
-            worst = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
-            # reads q, k, v, do, o, lse, pad (+ gate); writes dq, dk, dv
-            # (+ dsw); recomputes q.k and do.v and forms dv, dq, dk
-            table.add("mha_bwd", label, dname, *worst,
-                      cuda_ms(lambda: mha.mha_bwd(*bargs)),
-                      cuda_ms(lambda: mha.mha_bwd_plain(*bargs)), TOL[dname],
-                      bound(2 * qkvo + nbytes(pad, lse) + gate_b
-                            + nbytes(sw), 10 * work, peak), lib_bwd)
-            del o, lse, o2, lse2, o_ref, lse_ref, got, again, want, heads, bias
+            check_mha(table, label, dname, q, k, v, pad, sw, locs, do, H,
+                      1.0 / math.sqrt(dh), rate, 77)
         torch.cuda.empty_cache()
 
 
@@ -1660,6 +1691,463 @@ def trainer_switches():
     return out
 
 
+# --------------------------------------------------------------- data phase
+# the on-disk tree of the data phase (the port's fixture writer): one scan of
+# 90 objects (63 foreground, so the target-first crop to max_obj_len - 1 =
+# 79 runs) of 1200 points each (subsampled to 1024); about 2,500 train items
+# over all_pretrain's five families' sources
+DATA_TREE = {"n_scans": 1, "n_objects": 90, "pts_per_obj": 1200}
+DATA_ROOTS = ("scan_family_base", "rscan_base", "arkitscene_base",
+              "multiscan_base", "hm_base")
+# launches of the frozen path: per forward (train step or eval batch) SA1
+# and SA2 each one fps and one sa_group_mlp_pool, 15 fused attention layers;
+# per train step 15 mha_bwd
+DATA_PER_FORWARD = {"fps": 2, "sa_group_mlp_pool": 2, "mha_fwd": 15}
+DATA_PER_STEP = {"mha_bwd": 15}
+# batches ``loader_rates`` times after a loader's first (without workers;
+# with 4 workers, more than their 8 prefetched batches)
+LOADER_BATCHES = {"workers_0": 3, "workers_4": 16}
+# train steps of the run through the materialized store
+MATERIALIZED_STEPS = 6
+
+
+def data_args(root, extra=()):
+    """``run_torch`` arguments of ``configs/final/all_pretrain.yaml`` as it
+    stands, with only the data roots, one card, ground-truth objects (the
+    tree has no Mask3D files), one epoch and a fetch per step set."""
+    return ["--config-path", os.path.join(REPO, "configs", "final"),
+            "--config-name", "all_pretrain",
+            *[f"data.{k}={root}" for k in DATA_ROOTS], "num_gpu=1",
+            "data.args.pc_type=gt", "solver.epochs=1", "solver.log_every=1",
+            *extra]
+
+
+def loader_rates(root, loader):
+    """Scenes/s of the train loader alone (no model), host clock from a
+    batch's arrival to the last one's: ``loader``, the data run's own
+    DataLoader (its 4 spawned workers already started), over
+    LOADER_BATCHES["workers_4"] batches of a new epoch after its first,
+    which it returns too; the DataLoader at 0 workers over
+    LOADER_BATCHES["workers_0"] batches; the materialized batch loader over
+    an epoch."""
+    import run_torch
+    from sceneverse_tpu_torch.data import build_dataloader
+    from sceneverse_tpu_torch.data.materialized import \
+        build_materialized_train_loader
+
+    stages = {}
+
+    def rate(name, build, n):
+        t0 = time.perf_counter()
+        loader = build()
+        it = iter(loader)
+        first = next(it)
+        t1 = time.perf_counter()
+        for _ in range(n(loader)):
+            next(it)
+        t2 = time.perf_counter()
+        # a loader with workers is drained untimed: a worker shut down
+        # while its batches in shared memory wait unread aborts (torch's,
+        # not this code's); one without has nothing in flight
+        if getattr(loader, "num_workers", 0):
+            for _ in it:
+                pass
+        stages[name] = {"to_first_s": t1 - t0, "timed_s": t2 - t1,
+                        "drain_s": time.perf_counter() - t2}
+        return n(loader) * batch / (t2 - t1), first
+
+    def cfg(*extra):
+        return run_torch.load_cfg(data_args(root, list(extra)))
+
+    batch = int(cfg().dataloader.batchsize)
+    out = {}
+    out["workers_4"], first = rate(
+        "workers_4", lambda: loader,
+        lambda ld: min(LOADER_BATCHES["workers_4"], len(ld) - 1))
+    out["workers_0"] = rate(
+        "workers_0",
+        lambda: build_dataloader(cfg("dataloader.num_workers=0"), "train"),
+        lambda ld: min(LOADER_BATCHES["workers_0"], len(ld) - 1))[0]
+    out["materialized"] = rate(
+        "materialized",
+        lambda: build_materialized_train_loader(
+            cfg("data.args.materialized=fast")), lambda ld: len(ld) - 1)[0]
+    log(f"[data] loader stages, host clock s (build and first batch, timed "
+        f"batches, the rest drained): {stages}")
+    return out, first
+
+
+class FirstBatches:
+    """The first ``n`` batches of each epoch of ``loader``: a generator
+    without workers, such as the materialized batch loader, left
+    unfinished holds nothing."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, min(n, len(loader))
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        it = iter(self.loader)
+        return (next(it) for _ in range(self.n))
+
+
+def eval_loaders(trainer, split):
+    loaders = trainer.data_loaders[split]
+    return loaders if isinstance(loaders, list) else [loaders]
+
+
+def check_eval(tag, trainer):
+    """What the trained model picks on the val split, and the evaluator on
+    oracle logits. First the model's forward over the val loader: how often
+    the og3d argmax lands on a pad object (the model leaves pad objects'
+    og3d logits unmasked, as the JAX package's does), og accuracy with pad
+    objects masked, and the share of real objects whose predicted class
+    (raw and post) is one of the batch's labels. Then ``_eval_loop`` on
+    the same loader with the model's forward replaced by oracle logits (the
+    target's og3d logit 1, every object's class logit at its label 1): every
+    ``ScanReferEval`` metric must be 1 (the unique / multiple ones 0 where
+    the split holds no such item), so a wrong id, label or box read fails
+    it."""
+    import torch
+
+    from sceneverse_tpu_torch.trainer.build import to_device
+
+    n = on_pad = hit = hit_masked = n_mult = 0
+    cls_in = {"obj_cls_raw": 0, "obj_cls_post": 0}
+    n_obj = 0
+    n_cls = None
+    for loader in eval_loaders(trainer, "val"):
+        for host in loader:
+            b = to_device(host, trainer.device)
+            out = trainer.forward(b)
+            m = b["obj_masks"].bool()
+            og = out["og3d_logits"].float()
+            tgt = b["tgt_object_id"][:, 0]
+            pred = og.argmax(-1)
+            rows = torch.arange(len(pred), device=pred.device)
+            on_pad += int((~m[rows, pred]).sum())
+            hit += int((pred == tgt).sum())
+            masked = og.masked_fill(~m, float("-inf")).argmax(-1)
+            hit_masked += int((masked == tgt).sum())
+            n += len(pred)
+            n_mult += int(b["is_multiple"].bool().sum())
+            labels = b["obj_labels"][m]
+            present = torch.unique(labels)
+            for key in cls_in:
+                p = out[f"{key}_logits"].argmax(-1)[m]
+                cls_in[key] += int(torch.isin(p, present).sum())
+            n_obj += int(m.sum())
+            n_cls = out["obj_cls_raw_logits"].shape[-1]
+    diag = {"items": n, "og_argmax_on_pad": on_pad / n, "og_acc": hit / n,
+            "og_acc_pads_masked": hit_masked / n,
+            **{f"{k}_pred_among_labels": v / n_obj
+               for k, v in cls_in.items()}}
+    log(f"{tag} the model on val: {diag}")
+
+    def oracle(batch):
+        m = batch["obj_masks"].bool()
+        B, O = m.shape
+        og = torch.zeros((B, O), device=m.device)
+        og[torch.arange(B, device=m.device), batch["tgt_object_id"][:, 0]] = 1
+        labels = batch["obj_labels"].long().clamp_min(0)
+        cls = torch.nn.functional.one_hot(labels, n_cls).float()
+        return {"og3d_logits": og, "obj_cls_raw_logits": cls,
+                "obj_cls_post_logits": cls}
+
+    # the run's metrics log is closed: the oracle pass writes no row
+    trainer.forward, trainer.log = oracle, lambda *a, **k: None
+    try:
+        res = trainer._eval_loop("val", "val")[1]
+    finally:
+        del trainer.forward, trainer.log
+    want = {k: 1.0 for k in res if k not in ("target_metric", "best_result")}
+    for kind, count in (("unique", n - n_mult), ("multiple", n_mult)):
+        for iou in ("25", "50"):
+            want[f"og_acc_iou{iou}_{kind}"] = 1.0 if count else 0.0
+    got = {k: float(res[k]) for k in want}
+    log(f"{tag} val metrics on oracle logits: {got}")
+    if got != want or "og_acc" not in got:
+        raise AssertionError(f"{tag} oracle val metrics {got}, expected "
+                             f"{want}")
+    return {**diag, "oracle": got}
+
+
+def _run_data(name, root, extra, steps=None):
+    """``run_torch.main`` on all_pretrain over the tree (with ``steps``,
+    what it does with the train loader cut to its first ``steps`` batches):
+    every loss finite, each kernel of the frozen path launched exactly as
+    often per train step and per eval batch as that path needs and no other
+    kernel, val and test ``ScanReferEval`` metrics in [0, 1], then
+    ``check_eval``."""
+    import torch
+
+    import run_torch
+    from sceneverse_tpu_torch.ckpt.checkpoint import wait_for_checkpoints
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.trainer.build import build_trainer
+
+    tag = f"[data {name}]"
+    args = data_args(root, extra + [
+        f"base_dir={os.path.join(REPO, 'build', 'smoke_runs', name)}"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t_start = time.time()  # the metrics log's clock
+    t0 = time.perf_counter()
+    if steps is None:
+        trainer = run_torch.main(args)["trainer"]
+    else:
+        cfg = run_torch.load_cfg(args)
+        os.makedirs(cfg.exp_dir, exist_ok=True)
+        trainer = build_trainer(cfg)
+        trainer.data_loaders["train"] = FirstBatches(
+            trainer.data_loaders["train"], steps)
+        trainer.run()
+        wait_for_checkpoints()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    hist = trainer.history
+    n_train = len(hist["train"])
+    n_eval = sum(len(trainer.data_loaders[s]) for s in ("val", "test"))
+    losses = [r["total_loss"] for r in hist["train"]]
+    steady = statistics.mean(r["step_s"] for r in hist["train"][1:])
+    batch = int(trainer.cfg.dataloader.batchsize)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} {n_train} train steps at batch {batch} and {n_eval} eval "
+        f"batches in {wall:.1f} s (host clock, loader starts and saves "
+        f"included); steady step {steady:.4f} s (mean after the first, "
+        f"batch on the card to losses fetched) -> {batch / steady:.2f} "
+        f"scenes/s; peak memory {peak:.2f} GiB")
+    log(f"{tag} total loss per step: {[round(x, 4) for x in losses]}")
+    log(f"{tag} launches {launches}")
+    for key in ("val", "test"):
+        log(f"{tag} {key} {hist[key]}")
+    if n_train < 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} losses not finite / too few: {losses}")
+    want = {k: n * (n_train + n_eval) for k, n in DATA_PER_FORWARD.items()}
+    want.update({k: n * n_train for k, n in DATA_PER_STEP.items()})
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want} "
+                             f"({n_train} train steps, {n_eval} eval "
+                             "batches)")
+    for key in ("val", "test"):
+        res = hist[key][-1] if hist[key] else {}
+        bad = {k: v for k, v in res.items()
+               if k != "best_result" and not 0.0 <= v <= 1.0}
+        if not res or bad:
+            raise AssertionError(f"{tag} {key} metrics {res}")
+    # the train loop's host clock per step, loader waits included: the
+    # metrics log's row times (one row per step, written at its fetch; the
+    # val and test rows at the end of their passes)
+    with open(os.path.join(trainer.cfg.exp_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ts = [r["_ts"] for r in rows if "train/total_loss" in r]
+    t_val, t_test = (next(r["_ts"] for r in rows if f"{k}/og_acc" in r)
+                     for k in ("val", "test"))
+    loop_step = (ts[-1] - ts[0]) / (len(ts) - 1)
+    starts = {"to_first_fetch_s": ts[0] - t_start,
+              "val_pass_s": t_val - ts[-1], "test_pass_s": t_test - t_val}
+    log(f"{tag} train loop {loop_step:.4f} s a step (host clock between the "
+        f"steps' fetches, loader waits included) -> {batch / loop_step:.2f} "
+        f"scenes/s; host clock s: run start to the first step's fetch (the "
+        f"trainer's build, the train loader's start, one step), the val "
+        f"pass and the test pass (each starts its loader; the epoch's saves "
+        f"before the test pass): {starts}")
+    info = {"train_steps": n_train, "eval_batches": n_eval, "batch": batch,
+            "losses": losses, "steady_step_s": steady,
+            "scenes_per_s": batch / steady, "loop_step_s": loop_step,
+            "loop_scenes_per_s": batch / loop_step, "wall_s": wall,
+            **starts,
+            "peak_mem_gib": peak, "launches": launches,
+            "val": hist["val"][-1], "test": hist["test"][-1]}
+    # after the run's rows are read: the oracle pass adds a val row
+    info["eval_check"] = check_eval(tag, trainer)
+    return info, trainer
+
+
+def sa_on_batch(table, obj_fts, pnet, label):
+    """``fps`` and ``sa_group_mlp_pool`` of SA1 and SA2 on one batch's
+    objects (G = B x O, pad objects included) with the model's frozen
+    weights, each level fed the kernels' output of the one before, as the
+    frozen PointNet++ runs: ``fps`` bit-equal to its twin and over two runs,
+    ``sa_group_mlp_pool`` within SA_TOL of its twin and bit-identical over
+    two runs; each row with its in-ball pair share and its device time."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    pts = obj_fts.reshape(-1, *obj_fts.shape[2:]).float().cuda()
+    G = pts.shape[0]
+    rows = []
+    for li, level in enumerate(pnet.encoder[:2]):
+        m, ns, r = level.npoint, level.nsample, level.radius
+        N, C = pts.shape[1:]
+        tag = f"SA{li + 1} {label} G={G} N={N} C={C} m={m}"
+        xyz = pts[..., :3].contiguous()
+        got_xyz, got_idx = sa.fps(xyz, m)
+        want_xyz, want_idx = sa.fps_plain(xyz, m)
+        if not (torch.equal(got_idx, want_idx)
+                and torch.equal(got_xyz, want_xyz)
+                and torch.equal(sa.fps(xyz, m)[1], got_idx)):
+            raise AssertionError(f"fps {tag}: differs from its twin or "
+                                 "between two runs")
+        fps_dev = device_ms(lambda: sa.fps(xyz, m), "sv_fps_kernel")
+        rows.append({"kernel": "fps", "shape": tag, "device_ms": fps_dev})
+        table.add("fps", tag, "f32", *_err(got_xyz, want_xyz),
+                  cuda_ms(lambda: sa.fps(xyz, m)),
+                  cuda_ms(lambda: sa.fps_plain(xyz, m)), 0.0,
+                  fps_bound(G, N, m), device_ms=fps_dev)
+        ws = [t for pair in sa.fold_shared_mlp(level.mlps[0]) for t in pair]
+        ops = sa.prepare_weights(*[w.detach().float().cuda() for w in ws])
+        spec = [C] + [w.shape[0] for w in ws[0::2]]
+        got = check_sa_fwd(table, "sa_group_mlp_pool", tag,
+                           sa.sa_group_mlp_pool, sa.sa_group_mlp_pool_plain,
+                           pts, got_xyz, ops, r, ns, spec, {"nsample": ns})
+        shape = table.rows["sa_group_mlp_pool"]["shapes"][-1]
+        shape["device_ms"] = device_ms(
+            lambda: sa.sa_group_mlp_pool(pts, got_xyz, *ops, radius=r,
+                                         nsample=ns), "sv_sa_fwd_kernel")
+        rows.append({"kernel": "sa_group_mlp_pool", "shape": tag,
+                     "in_ball": shape["in_ball"],
+                     "device_ms": shape["device_ms"]})
+        log(f"[data kernels] {tag}: in-ball pair share "
+            f"{shape['in_ball']:.4f}, device fps {fps_dev:.4f} ms, "
+            f"sa_group_mlp_pool {shape['device_ms']:.4f} ms")
+        pts = torch.cat([got_xyz, got], -1).contiguous()
+    return rows
+
+
+def mha_on_batch(table, trainer, batch):
+    """``mha_fwd`` and ``mha_bwd`` against their twins on the operands the
+    model hands them in one train step on a pipeline batch: the batch's own
+    text and object padding, the 'cond' gate on its object locations, the
+    layers' dropout seeds. The step's backward calls are recorded (each
+    carries its forward's operands and the incoming gradient) and the first
+    of each distinct shape, gate and dropout goes through ``check_mha``."""
+    from sceneverse_tpu_torch.ops import mha
+
+    calls = []
+    real = mha.mha_bwd
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    mha.mha_bwd = record
+    try:
+        trainer.train_forward_backward(batch)
+    finally:
+        mha.mha_bwd = real
+    seen = {}
+    for q, k, v, pad, sw, locs, do, _, _, H, scale, rate, seed in calls:
+        key = (tuple(q.shape), k.shape[1], sw is not None, rate, q.dtype)
+        seen.setdefault(key, (q, k, v, pad, sw, locs, do, H, scale, rate,
+                              seed))
+    rows = []
+    for (shape, T, gate, rate, dtype), args in seen.items():
+        B, L, D = shape
+        label = (f"pipeline B={B} L={L}{' cond' if gate else ''}"
+                 f"{f' drop{rate:g}' if rate else ''}")
+        dname = "bf16" if "bfloat16" in str(dtype) else "f32"
+        check_mha(table, label, dname, *args)
+        rows.append(label)
+    log(f"[data kernels] mha_fwd / mha_bwd on the pipeline batch's "
+        f"{len(calls)} attention calls, {len(rows)} distinct: {rows}")
+    return rows
+
+
+def phase_data(table):
+    """configs/final/all_pretrain.yaml end to end from an on-disk tree the
+    port's fixture writer makes: the run through DataLoader workers, the
+    run through the materialized store, the frozen SA kernels against their
+    twins on a train batch of the pipeline (and on standard-normal objects,
+    the synthetic slices' input, for comparison), and the host loader's
+    rates."""
+    import shutil
+
+    import torch
+
+    import run_torch
+    from sceneverse_tpu_torch.data import get_dataset
+    from sceneverse_tpu_torch.data.fixture import write_synthetic_tree
+    from sceneverse_tpu_torch.data.materialized import ensure_materialized
+    from sceneverse_tpu_torch.data.tokenizer import _CACHED, get_tokenizer
+    from sceneverse_tpu_torch.trainer.build import to_device
+
+    root = os.path.join(REPO, "build", "smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = t0 = time.perf_counter()
+    write_synthetic_tree(root, **DATA_TREE)
+    cfg = run_torch.load_cfg(data_args(root))
+    n_items = {s: [len(d) for d in (ds.datasets if s == "train" else ds)]
+               for s in ("train", "val")
+               for ds in [get_dataset(cfg, s)]}
+    tok = get_tokenizer(cfg)
+    vocab = next(k for k, v in _CACHED.items() if v is tok)
+    log(f"[data] tree {DATA_TREE} written in {time.perf_counter() - t0:.1f} "
+        f"s; items per family: train {n_items['train']} (total "
+        f"{sum(n_items['train'])}), val {n_items['val']}; tokenizer "
+        f"{'hash' if vocab == '__hash__' else vocab}")
+    out = {"tree": DATA_TREE, "items": n_items, "tokenizer": vocab,
+           "cpu_count": os.cpu_count()}
+    out["run"], trainer = _run_data("data", root, [])
+    pnet = trainer.model.point_encoder.point_feature_extractor
+    t0 = time.perf_counter()
+    stores = {f"{n}_{s}": str(ensure_materialized(cfg, n, s))
+              for s in ("train", "val") for n in cfg.data[s]}
+    out["store_s"] = time.perf_counter() - t0
+    log(f"[data] materialized stores built in {out['store_s']:.1f} s: "
+        f"{sorted(stores)}")
+    out["loader_scenes_per_s"], batch = loader_rates(
+        root, trainer.data_loaders["train"])
+    log(f"[data] train loader alone, scenes/s (host clock, "
+        f"os.cpu_count() = {os.cpu_count()}): {out['loader_scenes_per_s']}")
+    dev = to_device(batch, trainer.device)
+    out["kernels"] = {"mha": mha_on_batch(table, trainer, dev)}
+    # one train step's device time on that batch (kernels, copies, fills),
+    # against the runs' host-clock steps: the device's busy share
+    step_ms, events = kernel_sum_ms(lambda: trainer.train_forward_backward(
+        dev))
+    out["device_step_ms"] = step_ms
+
+    def busy(run):
+        return {"step": step_ms / 1e3 / run["steady_step_s"],
+                "loop": step_ms / 1e3 / run["loop_step_s"]}
+
+    out["busy"] = {"run": busy(out["run"])}
+    del trainer, dev
+    _free()
+    # the pipeline's own batch (the first of the run's loader's second
+    # epoch) through SA1 and SA2, then standard-normal objects
+    fts = torch.as_tensor(batch["obj_fts"])
+    pad = ~torch.as_tensor(batch["obj_masks"])
+    log(f"[data kernels] train batch obj_fts {tuple(fts.shape)}, "
+        f"{int(pad.sum())} pad objects (every point 1.0: "
+        f"{bool((fts[pad] == 1.0).all())})")
+    g = torch.Generator().manual_seed(0)
+    out["kernels"].update({
+        "pipeline": sa_on_batch(table, fts, pnet, "pipeline"),
+        "synthetic": sa_on_batch(table, torch.randn(fts.shape, generator=g),
+                                 pnet, "standard-normal")})
+    del pnet, batch, fts
+    _free()
+    out["materialized"], trainer = _run_data(
+        "data_materialized", root, ["data.args.materialized=fast"],
+        steps=MATERIALIZED_STEPS)
+    del trainer
+    _free()
+    out["busy"]["materialized"] = busy(out["materialized"])
+    log(f"[data] one train step at batch 64: {step_ms:.2f} ms of device "
+        f"work ({events} events, torch.profiler); busy share of the step "
+        f"(batch on the card to losses fetched) and of the train loop: "
+        f"{out['busy']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[data] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def phase_trainer():
     """The trainer: remat, accumulation, the 240-step run with a resume at
     step 120, and the profile / NaN / eval.save switches."""
@@ -1687,17 +2175,22 @@ def main():
               for name, (extra, _, env) in PATHS.items()}
     entry = phase_entry(slices["frozen_exact"])
     trainer = phase_trainer()
+    data = phase_data(table)
     paths = {p: s["launches"] for p, s in slices.items()}
     paths["trainer"] = trainer["run"]["launches"]
+    paths["data"] = data["run"]["launches"]
+    paths["data_materialized"] = data["materialized"]["launches"]
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]
         # headline: the heaviest call shape of the main path, f32 where the
         # kernel has an f32 form (no GPS caller passes flash attention a
-        # bias, and the SA rows' "+all-in" balls hold every point: neither
-        # is a main-path input)
+        # bias, the SA rows' "+all-in" balls hold every point, and the data
+        # phase's standard-normal objects are its yardstick: none is a
+        # main-path input)
         shapes = [r for r in row["shapes"]
-                  if "+ab" not in r["shape"] and "+all-in" not in r["shape"]]
+                  if not any(t in r["shape"] for t in
+                             ("+ab", "+all-in", "standard-normal"))]
         head = max([r for r in shapes if r["dtype"] == "f32"] or shapes,
                    key=lambda r: r["ms"])
         by_path = {p: n.get(name, 0) for p, n in paths.items()}
@@ -1713,7 +2206,7 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "trainer": trainer,
-                   "card": card}, f,
+                   "data": data, "card": card}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -3,7 +3,7 @@ Hopper (H100).
 
 The JAX package (``sceneverse_tpu``) is the reference this package is held
 against. The framework-free parts the port needs (config, registry, the
-synthetic dataset, the metrics logger) are copies kept in this package;
+data pipeline, the metrics logger) are copies kept in this package;
 nothing here imports ``jax``, ``flax`` or the JAX package.
 
 Every Pallas kernel on the GPS pretrain path has a hand-written CUDA C++

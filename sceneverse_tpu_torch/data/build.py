@@ -1,16 +1,23 @@
-"""Dataset registry, dataset construction and the numpy collate.
+"""Dataset registry, dataset construction and the loaders.
 
-The port's own copy of the framework-free part of
-``sceneverse_tpu/data/build.py`` (``DATASET_REGISTRY``, ``get_dataset``,
-``numpy_collate``). Items are dicts of numpy arrays with
-static shapes; the trainer batches them with a ``torch.utils.data``
-``DataLoader`` (``trainer/build.py``). The JAX package's process sharding,
-materialized store and dataset wrappers are not ported.
+The port's own copy of ``sceneverse_tpu/data/build.py``: items are dicts of
+numpy arrays with static shapes (objects padded to max_obj_len, points to
+num_points, text to max_seq_len), built by the datasets under
+``datasets/`` and wrapped by ``data_wrapper``; ``build_dataloader`` batches
+them with a ``torch.utils.data`` ``DataLoader`` (spawn-context workers and
+the shared-memory tensor collate when ``dataloader.num_workers`` > 0, the
+numpy collate otherwise), or, for ``data.args.materialized: fast`` on the
+train split, with ``materialized.MaterializedBatchLoader``.
+
+Batches are numpy arrays with no workers and CPU tensors with workers;
+``trainer/build.py::to_device`` takes both. The JAX package's per-process
+eval sharding is not ported: the port runs one process.
 """
 
 from __future__ import annotations
 
 import numpy as np
+from torch.utils.data import ConcatDataset
 
 from sceneverse_tpu_torch.registry import Registry
 
@@ -37,20 +44,95 @@ def numpy_collate(items: list) -> dict:
 
 
 def get_dataset(cfg, split="train"):
-    """The datasets of a split: concatenated for train, a list for eval."""
-    from torch.utils.data import ConcatDataset
-
-    from sceneverse_tpu_torch.data.datasets import synthetic  # noqa: F401
+    """Instantiate datasets for a split, wrap with the configured wrapper,
+    concat for train (reference data/build.py:14-39)."""
+    import sceneverse_tpu_torch.data  # noqa: F401 (registries)
+    from sceneverse_tpu_torch.data.datasets.dataset_wrapper import \
+        DATASETWRAPPER_REGISTRY
 
     names = cfg.data.get(split)
     if isinstance(names, str):
         names = [names]
-    if "data_wrapper" in cfg and cfg.data_wrapper.get(split):
-        raise NotImplementedError(
-            f"dataset wrapper {cfg.data_wrapper[split]!r} is not ported yet")
-    if cfg.data.args.get("materialized", False):
-        raise NotImplementedError("materialized datasets are not ported yet")
-    datasets = [DATASET_REGISTRY.get(n)(cfg, split) for n in names]
+    wrapper_name = cfg.data_wrapper[split] if "data_wrapper" in cfg else None
+
+    def build_one(name):
+        if cfg.data.args.get("materialized", False):
+            # offline-materialized store-backed datasets (data/materialized.py)
+            from sceneverse_tpu_torch.data.materialized import (
+                MaterializedPretrainObj, MaterializedSpatialRefer)
+
+            if name.endswith("SpatialRefer"):
+                ds = MaterializedSpatialRefer(cfg, split, name=name)
+            elif name.endswith("PretrainObj"):
+                ds = MaterializedPretrainObj(cfg, split, name=name)
+            else:
+                ds = DATASET_REGISTRY.get(name)(cfg, split)
+        else:
+            ds = DATASET_REGISTRY.get(name)(cfg, split)
+        if wrapper_name:
+            ds = DATASETWRAPPER_REGISTRY.get(wrapper_name)(cfg, ds)
+        return ds
+
+    datasets = [build_one(n) for n in names]
     if split == "train":
         return ConcatDataset(datasets) if len(datasets) > 1 else datasets[0]
     return datasets
+
+
+def shm_collate(items: list) -> dict:
+    """numpy_collate + torch-tensor wrapping of the array fields.
+
+    With num_workers > 0 the collated batch crosses the worker->main process
+    boundary: plain numpy arrays go through pickle pipes, while torch
+    tensors ride torch's shared-memory transport."""
+    import torch
+
+    out = numpy_collate(items)
+    return {
+        k: (torch.from_numpy(np.ascontiguousarray(v))
+            if isinstance(v, np.ndarray) and v.dtype != object else v)
+        for k, v in out.items()
+    }
+
+
+def _make_loader(dataset, cfg, shuffle, drop_last):
+    import torch
+    from torch.utils.data import DataLoader
+
+    workers = int(cfg.dataloader.get("num_workers", 0))
+    # a generator of its own, as JAX ``data/build.py::_seeded_generator``:
+    # iterating one loader moves no other loader's shuffle
+    gen = torch.Generator().manual_seed(int(cfg.get("rng_seed", 42)))
+    return DataLoader(
+        dataset,
+        batch_size=int(cfg.dataloader.batchsize),
+        num_workers=workers,
+        collate_fn=shm_collate if workers > 0 else numpy_collate,
+        pin_memory=False,
+        shuffle=shuffle,
+        drop_last=drop_last,
+        persistent_workers=workers > 0,
+        generator=gen,
+        # workers hold numpy only and must never touch the parent's CUDA
+        # context: spawn, not fork; persistent_workers pays the start once
+        multiprocessing_context="spawn" if workers > 0 else None,
+    )
+
+
+def build_dataloader(cfg, split="train"):
+    """Train: one shuffled drop-last loader over the concat dataset (the
+    fused materialized batch loader for ``data.args.materialized: fast``).
+    Eval: one loader per dataset, in order; a single one is returned as the
+    loader itself."""
+    if split == "train" and cfg.data.args.get("materialized") == "fast":
+        from sceneverse_tpu_torch.data.materialized import \
+            build_materialized_train_loader
+
+        return build_materialized_train_loader(cfg)
+    dataset = get_dataset(cfg, split)
+    if split == "train":
+        return _make_loader(dataset, cfg, shuffle=True, drop_last=True)
+    loaders = [
+        _make_loader(ds, cfg, shuffle=False, drop_last=False) for ds in dataset
+    ]
+    return loaders[0] if len(loaders) == 1 else loaders

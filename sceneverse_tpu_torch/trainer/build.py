@@ -5,9 +5,10 @@ step is forward, loss, backward, global-norm clip, AdamW and the LR
 schedule, with ``torch.autocast(bfloat16)`` when ``mixed_precision`` asks
 for it. The device is CUDA unless the caller asks for the CPU (the
 ``device`` argument or ``device=cpu`` in the config); with no CUDA card the
-trainer raises instead of falling back. Data comes from the port's datasets
-(``data/build.py::get_dataset``) through ``torch.utils.data.DataLoader``s,
-each with its own generator seeded from ``rng_seed``. ``mode=test`` builds
+trainer raises instead of falling back. Data comes from the port's data
+pipeline (``data/build.py::build_dataloader``: the datasets and wrappers of
+the config through ``torch.utils.data.DataLoader``s, each with its own
+generator seeded from ``rng_seed``, or the materialized batch loader). ``mode=test`` builds
 only the test loader and runs the test pass; ``pretrain_ckpt_path`` loads a
 checkpoint (``ckpt/convert.py::load_torch_pretrain``) before anything runs.
 
@@ -47,7 +48,7 @@ from sceneverse_tpu_torch.ckpt.checkpoint import (is_checkpoint,
                                                   save_checkpoint,
                                                   wait_for_checkpoints)
 from sceneverse_tpu_torch.ckpt.convert import load_torch_pretrain
-from sceneverse_tpu_torch.data.build import get_dataset, numpy_collate
+from sceneverse_tpu_torch.data.build import build_dataloader
 from sceneverse_tpu_torch.evaluator import build_eval
 from sceneverse_tpu_torch.model import build_model
 from sceneverse_tpu_torch.modules.utils import set_generators
@@ -63,29 +64,6 @@ TRAINER_REGISTRY = Registry("trainer")
 # the JAX package's map (trainer/build.py:181-186): these values train
 # under a bf16 autocast, every other value in f32
 _BF16_VALUES = ("bf16", "bfloat16", "fp16", "16")
-
-
-def build_dataloader(cfg, split: str):
-    """Train: shuffled drop-last loader; eval: one loader per dataset (the
-    loader itself when there is one), in order."""
-    from torch.utils.data import DataLoader
-
-    workers = int(cfg.dataloader.get("num_workers", 0))
-
-    def make(ds, shuffle, drop_last):
-        # a generator of its own, as JAX ``data/build.py::_seeded_generator``:
-        # iterating one loader moves no other loader's shuffle
-        gen = torch.Generator().manual_seed(int(cfg.get("rng_seed", 42)))
-        return DataLoader(ds, batch_size=int(cfg.dataloader.batchsize),
-                          shuffle=shuffle, drop_last=drop_last,
-                          num_workers=workers, collate_fn=numpy_collate,
-                          generator=gen, persistent_workers=workers > 0)
-
-    dataset = get_dataset(cfg, split)
-    if split == "train":
-        return make(dataset, True, True)
-    loaders = [make(ds, False, False) for ds in dataset]
-    return loaders[0] if len(loaders) == 1 else loaders
 
 
 def to_device(batch: dict, device) -> dict:
@@ -282,8 +260,9 @@ class BaseTrainer:
         self.exp_tracker.load_state_dict(state["tracker"])
         self.global_step = int(state["global_step"])
         set_generators(self.model, self.seed, self.device)
-        if "train" in self.data_loaders:
-            self.data_loaders["train"].generator.manual_seed(self.seed)
+        gen = getattr(self.data_loaders.get("train"), "generator", None)
+        if gen is not None:  # the materialized loader seeds each epoch
+            gen.manual_seed(self.seed)
         self.resumed_from = target
         print(f"Successfully resumed from {target}")
 

@@ -81,9 +81,11 @@ class DefaultTrainer(BaseTrainer):
             ev_list = ev_list * len(ld_list)
         is_best, results = False, {}
         for ev, loader in zip(ev_list, ld_list):
-            for batch in loader:
-                batch = to_device(batch, self.device)
-                ev.update({**batch, **self.forward(batch)})
+            for host in loader:
+                batch = to_device(host, self.device)
+                # the host batch's lists (string item ids, sentences) stay
+                # beside the tensors, as the JAX evaluators get them
+                ev.update({**host, **batch, **self.forward(batch)})
             best_i, res_i = ev.record()
             is_best = is_best or best_i
             results.update(res_i)

@@ -54,6 +54,12 @@ def test_port_file_imports_no_jax_and_no_jax_package(path):
 def test_the_import_check_sees_every_port_file():
     assert len(PORT_FILES) > 40
     assert "sceneverse_tpu/config.py" not in PORT_FILES
+    data = [f"sceneverse_tpu_torch/data/{m}.py" for m in (
+        "build", "data_utils", "fixture", "materialized", "native",
+        "tokenizer", "datasets/base", "datasets/constant",
+        "datasets/data_augmentor", "datasets/dataset_wrapper",
+        "datasets/families")]
+    assert set(data) <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", CONFIGS)
