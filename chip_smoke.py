@@ -87,7 +87,27 @@ Phases (any failure exits non-zero; nothing is caught):
      each with its in-ball pair share and device time; the train loader's
      scenes/s alone at 0 and 4 workers and materialized; one train step's
      device time on that batch against both runs' steps (busy share).
-  8. prints the kernel table as one JSON line, the card line, and last
+  8. finetune (``phase_finetune``): the four ``configs/final/finetune``
+     configs ScanRefer (``GroundHeadV1``, batch 256), ScanQA
+     (``QAHeadV1`` over 8,864 answers, the ScanQA BCE branch of
+     ``TextObjWithinBatch``, batch 32), Nr3D (batch 256) and SQA3D (706
+     answers, batch 32) through ``run_torch.main`` as they stand, from the
+     ``best.pth`` the data phase's all_pretrain run saved, on a tree of 5
+     scans x 120 objects x 1200 points the fixture writer makes with the
+     phase's own QA files; only the data root, ``num_gpu=1``,
+     ``data.args.pc_type=gt``, one epoch, a fetch per step, the checkpoint
+     and ``dataloader.num_workers=0`` (FT_REDUCED) set: the checkpoint's
+     towers all loaded (``pretrain_head.*`` left over, the new head
+     missing), every loss finite and moving, ``fps``,
+     ``sa_group_mlp_pool``, ``mha_fwd`` and ``mha_bwd`` launched exactly as
+     often per train step and per eval batch as the path needs, val and
+     test metrics in [0, 1] with the config's target metric, and on the val
+     split no og3d argmax on a pad object and every metric 1 on oracle
+     outputs (``check_finetune_eval``); on the ScanRefer run's first train
+     batch (256 x 80 objects) ``fps`` (bit-equal) and ``sa_group_mlp_pool``
+     (SA_TOL) at SA1 and SA2, and ``mha_*`` on one train step's operands
+     at B = 256; that step's device time and busy share.
+  9. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
@@ -1693,9 +1713,10 @@ def trainer_switches():
 
 # --------------------------------------------------------------- data phase
 # the on-disk tree of the data phase (the port's fixture writer): one scan of
-# 90 objects (63 foreground, so the target-first crop to max_obj_len - 1 =
-# 79 runs) of 1200 points each (subsampled to 1024); about 2,500 train items
-# over all_pretrain's five families' sources
+# 90 objects (63 foreground: 17 of a scene's 80 slots are pads, and the
+# target-first crop to max_obj_len - 1 = 79 does not run) of 1200 points
+# each (subsampled to 1024); about 2,500 train items over all_pretrain's
+# five families' sources
 DATA_TREE = {"n_scans": 1, "n_objects": 90, "pts_per_obj": 1200}
 DATA_ROOTS = ("scan_family_base", "rscan_base", "arkitscene_base",
               "multiscan_base", "hm_base")
@@ -1955,7 +1976,8 @@ def _run_data(name, root, extra, steps=None):
         f"trainer's build, the train loader's start, one step), the val "
         f"pass and the test pass (each starts its loader; the epoch's saves "
         f"before the test pass): {starts}")
-    info = {"train_steps": n_train, "eval_batches": n_eval, "batch": batch,
+    info = {"exp_dir": trainer.cfg.exp_dir,
+            "train_steps": n_train, "eval_batches": n_eval, "batch": batch,
             "losses": losses, "steady_step_s": steady,
             "scenes_per_s": batch / steady, "loop_step_s": loop_step,
             "loop_scenes_per_s": batch / loop_step, "wall_s": wall,
@@ -2012,14 +2034,14 @@ def sa_on_batch(table, obj_fts, pnet, label):
         rows.append({"kernel": "sa_group_mlp_pool", "shape": tag,
                      "in_ball": shape["in_ball"],
                      "device_ms": shape["device_ms"]})
-        log(f"[data kernels] {tag}: in-ball pair share "
+        log(f"[kernels on a batch] {tag}: in-ball pair share "
             f"{shape['in_ball']:.4f}, device fps {fps_dev:.4f} ms, "
             f"sa_group_mlp_pool {shape['device_ms']:.4f} ms")
         pts = torch.cat([got_xyz, got], -1).contiguous()
     return rows
 
 
-def mha_on_batch(table, trainer, batch):
+def mha_on_batch(table, trainer, batch, source="pipeline"):
     """``mha_fwd`` and ``mha_bwd`` against their twins on the operands the
     model hands them in one train step on a pipeline batch: the batch's own
     text and object padding, the 'cond' gate on its object locations, the
@@ -2048,12 +2070,12 @@ def mha_on_batch(table, trainer, batch):
     rows = []
     for (shape, T, gate, rate, dtype), args in seen.items():
         B, L, D = shape
-        label = (f"pipeline B={B} L={L}{' cond' if gate else ''}"
+        label = (f"{source} B={B} L={L}{' cond' if gate else ''}"
                  f"{f' drop{rate:g}' if rate else ''}")
         dname = "bf16" if "bfloat16" in str(dtype) else "f32"
         check_mha(table, label, dname, *args)
         rows.append(label)
-    log(f"[data kernels] mha_fwd / mha_bwd on the pipeline batch's "
+    log(f"[{source} kernels] mha_fwd / mha_bwd on the batch's "
         f"{len(calls)} attention calls, {len(rows)} distinct: {rows}")
     return rows
 
@@ -2148,6 +2170,393 @@ def phase_data(table):
     return out
 
 
+# the finetune phase's tree (the port's fixture writer): 5 scans of 120
+# objects (84 foreground: the crop to max_obj_len - 1 = 79 runs, one pad
+# slot a scene) x 1200 points (subsampled to 1024), 3 referring
+# annotations per foreground object; scans 0-3 in the train split, scan 4
+# in val and test (the phase rewrites the split files): 1008 ScanRefer
+# train items (3 steps at batch 256), 252 val and 252 test; its own QA
+# files, whose answer vocabularies have the configs' published sizes
+FT_TREE = {"n_scans": 5, "n_objects": 120, "pts_per_obj": 1200,
+           "annos_per_obj": 3}
+FT_TRAIN_SCANS = 4
+FT_QA_ITEMS = {"train": 160, "val": 64, "test": 64}
+FT_ANSWERS = {"scanqa": 8864, "sqa3d": 706}
+# answers the QA items draw from (every val item's is in the train
+# vocabulary); the rest of a vocabulary is fillers the train items carry
+FT_COMMON = 20
+# run: (config under configs/final/finetune, its target metric, its head)
+FT_RUNS = {
+    "scanrefer": ("scanrefer_finetune", "og_acc_iou25", "ground_head"),
+    "scanqa": ("scanqa_finetune", "ans1_acc", "qa_head"),
+    "nr3d": ("nr3d_finetune", "og_acc", "ground_head"),
+    "sqa3d": ("sqa3d_finetune", "ans1_acc", "qa_head"),
+}
+# launches of the finetune path (no scene caption): per forward SA1 and SA2
+# each one fps and one sa_group_mlp_pool, 12 fused attention layers
+# (utterance BERT 4, spatial 4, unified 4); per train step 12 mha_bwd
+FT_PER_FORWARD = {"fps": 2, "sa_group_mlp_pool": 2, "mha_fwd": 12}
+FT_PER_STEP = {"mha_bwd": 12}
+# the one override beyond the contract's: each spawned 4-worker loader
+# takes 30-35 s to start on the card's host (three starts a run, twelve in
+# the phase), so the runs load in the main process
+FT_REDUCED = ["dataloader.num_workers=0"]
+
+
+def write_finetune_tree(root):
+    """The fixture tree of FT_TREE, its split files cut to FT_TRAIN_SCANS
+    train scans and one held-out val / test scan, and QA files of
+    FT_QA_ITEMS items: ScanQA train items answer one of FT_COMMON answers
+    plus their share of fillers, so the train json's vocabulary has
+    FT_ANSWERS["scanqa"] answers; SQA3D's ``answer_dict.json`` has
+    FT_ANSWERS["sqa3d"] (``u`` included) and its questions start with each
+    of the six question types' words. Returns the scan ids by split."""
+    from sceneverse_tpu_torch.data.fixture import (CATEGORIES,
+                                                   write_synthetic_tree)
+
+    write_synthetic_tree(root, **FT_TREE)
+    scans = [f"scene{i:04d}_00" for i in range(FT_TREE["n_scans"])]
+    ids = {"train": scans[:FT_TRAIN_SCANS], "val": scans[FT_TRAIN_SCANS:]}
+    ids["test"] = ids["val"]
+    ann = os.path.join(root, "annotations")
+    for split in ("train", "val", "test"):
+        with open(os.path.join(ann, "splits", f"scannetv2_{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(ids[split]) + "\n")
+    fg = [i for i in range(FT_TREE["n_objects"])
+          if CATEGORIES[i % len(CATEGORIES)] not in ("wall", "floor",
+                                                     "ceiling")]
+    common = [f"answer {k}" for k in range(FT_COMMON)]
+    fillers = [f"filler answer {k}"
+               for k in range(FT_ANSWERS["scanqa"] - FT_COMMON)]
+    n_train = FT_QA_ITEMS["train"]
+
+    def items(split):
+        for i in range(FT_QA_ITEMS[split]):
+            obj = fg[(7 * i) % len(fg)]
+            yield (i, ids[split][i % len(ids[split])], obj,
+                   CATEGORIES[obj % len(CATEGORIES)])
+
+    for split, fname in (("train", "train"), ("val", "val"),
+                         ("test", "test_w_obj")):
+        rows = []
+        for i, scan, obj, name in items(split):
+            row = {"scene_id": scan, "question_id": f"{split}-{i}",
+                   "question": f"What is next to the {name} number {i}?",
+                   "object_ids": [obj], "object_names": [name]}
+            if split == "train":
+                row["answers"] = [common[i % FT_COMMON]] + fillers[i::n_train]
+            elif split == "val":  # test_w_obj carries no answers
+                row["answers"] = [common[(3 * i) % FT_COMMON]]
+            rows.append(row)
+        with open(os.path.join(ann, "qa", f"ScanQA_v1.0_{fname}.json"),
+                  "w") as f:
+            json.dump(rows, f)
+    sqa = common + [f"situated answer {k}" for k in
+                    range(FT_ANSWERS["sqa3d"] - FT_COMMON - 1)] + ["u"]
+    with open(os.path.join(ann, "sqa_task", "answer_dict.json"), "w") as f:
+        json.dump([{a: k for k, a in enumerate(sqa)}, {}], f)
+    words = ("What", "Is", "How", "Can", "Which", "Where")
+    for split, src in (("train", "train"), ("test", "val")):
+        annos, questions = [], []
+        for i, scan, obj, name in items(src):
+            qid = 1000 + i
+            annos.append({
+                "scene_id": scan, "question_id": qid,
+                "answers": [{"answer": common[(3 * i) % FT_COMMON],
+                             "answer_confidence": "yes", "answer_id": 1}],
+                "position": {"x": 0.0, "y": 0.0, "z": 0.0},
+                "rotation": {"_x": 0, "_y": 0, "_z": 0, "_w": 1}})
+            questions.append({
+                "scene_id": scan, "question_id": qid,
+                "situation": f"I am standing by the {name}.",
+                "alternative_situation": ["I just sat on the sofa."],
+                "question": f"{words[i % len(words)]} is next to the {name}?"})
+        base = os.path.join(ann, "sqa_task", "balanced")
+        with open(os.path.join(base, "v1_balanced_sqa_annotations_"
+                               f"{split}_scannetv2.json"), "w") as f:
+            json.dump({"annotations": annos}, f)
+        with open(os.path.join(base, "v1_balanced_questions_"
+                               f"{split}_scannetv2.json"), "w") as f:
+            json.dump({"questions": questions}, f)
+    return ids
+
+
+def finetune_args(name, root, ckpt, extra=()):
+    """``run_torch`` arguments of the run's config as it stands, with only
+    the data root, one card, ground-truth objects (the tree has no Mask3D
+    files; ``scanqa_finetune.yaml`` inherits ``pred``), one epoch, a fetch
+    per step, the pretrain checkpoint and FT_REDUCED set."""
+    return ["--config-path", os.path.join(REPO, "configs", "final",
+                                          "finetune"),
+            "--config-name", FT_RUNS[name][0],
+            f"data.scan_family_base={root}", "num_gpu=1",
+            "data.args.pc_type=gt", "solver.epochs=1", "solver.log_every=1",
+            f"pretrain_ckpt_path={ckpt}", *FT_REDUCED,
+            f"base_dir={os.path.join(REPO, 'build', 'smoke_runs', 'finetune', name)}",
+            *extra]
+
+
+def check_finetune_eval(tag, trainer, head):
+    """One pass over the val split with the model's forward wrapped: the
+    model's own outputs are read (the og3d argmax must never land on a pad
+    object, which the ground head masks to -inf; how often the model is
+    right), then the evaluator gets oracle outputs instead (the target's
+    og3d logit 1, each object's and the text's class logit at its label 1,
+    an answer of the item's at score 1). Every metric must be 1, or 0
+    where its split holds no item: a wrong id, label, answer or type read
+    fails it."""
+    import torch
+    import torch.nn.functional as F
+
+    real = trainer.forward
+    seen = {"items": 0, "right": 0, "argmax_on_pad": 0, "answered": 0,
+            "is_multiple": 0, "is_hard": 0, "is_view_dependent": 0,
+            **{f"type{t}": 0 for t in range(6)}}
+
+    def oracle(batch):
+        out = real(batch)
+        m = batch["obj_masks"].bool()
+        B = m.shape[0]
+        rows = torch.arange(B, device=m.device)
+        labels = batch["obj_labels"].long().clamp_min(0)
+        cls = F.one_hot(labels, out["obj_cls_raw_logits"].shape[-1]).float()
+        res = {"obj_cls_raw_logits": cls}
+        seen["items"] += B
+        if head == "ground_head":
+            tgt = batch["tgt_object_id"][:, 0]
+            pred = out["og3d_logits"].argmax(-1)
+            seen["argmax_on_pad"] += int((~m[rows, pred]).sum())
+            seen["right"] += int((pred == tgt).sum())
+            for k in ("is_multiple", "is_hard", "is_view_dependent"):
+                if k in batch:
+                    seen[k] += int(batch[k].bool().sum())
+            og = torch.zeros(m.shape, device=m.device)
+            og[rows, tgt] = 1.0
+            res.update(og3d_logits=og, obj_cls_post_logits=cls,
+                       obj_cls_pre_logits=cls, txt_cls_logits=F.one_hot(
+                           batch["tgt_object_label"][:, 0],
+                           out["txt_cls_logits"].shape[-1]).float())
+        else:
+            lab = batch["answer_label"]
+            pred = out["answer_scores"].argmax(-1)
+            seen["right"] += int((lab[rows, pred] == 1).sum())
+            seen["answered"] += int(lab.any(-1).sum())
+            if "sqa_type" in batch:
+                for t in range(6):
+                    seen[f"type{t}"] += int((batch["sqa_type"] == t).sum())
+            res["answer_scores"] = F.one_hot(lab.argmax(-1),
+                                             lab.shape[1]).float()
+        return res
+
+    # the run's metrics log is closed: the oracle pass writes no row
+    trainer.forward, trainer.log = oracle, lambda *a, **k: None
+    try:
+        res = trainer._eval_loop("val", "val")[1]
+    finally:
+        del trainer.forward, trainer.log
+    n = seen["items"]
+    want = {k: 1.0 for k in res if k not in ("target_metric", "best_result")}
+    split_counts = {
+        "og_acc_iou25_unique": n - seen["is_multiple"],
+        "og_acc_iou50_unique": n - seen["is_multiple"],
+        "og_acc_iou25_multiple": seen["is_multiple"],
+        "og_acc_iou50_multiple": seen["is_multiple"],
+        "og_acc_easy": n - seen["is_hard"], "og_acc_hard": seen["is_hard"],
+        "og_acc_view_dep": seen["is_view_dependent"],
+        "og_acc_view_indep": n - seen["is_view_dependent"],
+        **{f"type{t}_acc": seen[f"type{t}"] for t in range(6)}}
+    for k, count in split_counts.items():
+        if k in want:
+            want[k] = 1.0 if count else 0.0
+    got = {k: float(res[k]) for k in want}
+    diag = {"items": n, "model_right": seen["right"] / n}
+    if head == "ground_head":
+        diag["og_argmax_on_pad"] = seen["argmax_on_pad"] / n
+    log(f"{tag} the model on val: {diag}; val metrics on oracle outputs: "
+        f"{got}")
+    if head == "qa_head" and seen["answered"] != n:
+        raise AssertionError(f"{tag} {n - seen['answered']} val items have "
+                             "no answer in the train vocabulary")
+    if head == "ground_head" and seen["argmax_on_pad"]:
+        raise AssertionError(f"{tag} the og3d argmax lands on a pad object "
+                             f"{seen['argmax_on_pad']} times")
+    if got != want:
+        raise AssertionError(f"{tag} oracle val metrics {got}, expected "
+                             f"{want}")
+    return {**diag, "oracle": got}
+
+
+def _run_finetune(name, root, ckpt, ckpt_shapes, extra=()):
+    """``run_torch.main`` on one finetune config over the tree from the
+    pretrain checkpoint: the checkpoint's towers all loaded (its
+    ``pretrain_head.*`` left over, the new head's tensors missing, as JAX's
+    ``apply_to_model`` lists them; the frozen PointNet++ equal to the
+    checkpoint's after the run), every loss finite and the total moving,
+    each kernel of the path launched exactly as often per train step and
+    per eval batch as it needs and no other kernel, val and test metrics in
+    [0, 1] with the target metric (and ``txt_acc`` for a ground head, the
+    six type accuracies for SQA3D), then ``check_finetune_eval``."""
+    import torch
+
+    import run_torch
+    from sceneverse_tpu_torch.ops import _build
+
+    config, target, head = FT_RUNS[name]
+    tag = f"[finetune {name}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = run_torch.main(finetune_args(name, root, ckpt, extra))[
+        "trainer"]
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = trainer.history
+    n_train = len(hist["train"])
+    n_eval = sum(len(ld) for s in ("val", "test") if hist[s]
+                 for ld in eval_loaders(trainer, s))
+    batch = int(trainer.cfg.dataloader.batchsize)
+    losses = [r["total_loss"] for r in hist["train"]]
+    steady = statistics.mean(r["step_s"] for r in hist["train"][1:])
+    own = trainer.model.state_dict()
+    unexpected = sorted(k for k in ckpt_shapes if k not in own)
+    missing = sorted(k for k in own if k not in ckpt_shapes)
+    mismatched = [k for k in ckpt_shapes if k in own
+                  and tuple(own[k].shape) != ckpt_shapes[k]]
+    log(f"{tag} {config}: {n_train} train steps at batch {batch} and "
+        f"{n_eval} eval batches in {wall:.1f} s (host clock, the build and "
+        f"saves included); steady step {steady:.4f} s (mean after the "
+        f"first, batch on the card to losses fetched); peak memory "
+        f"{peak:.2f} GiB; {trainer.pretrain_loaded} tensors loaded, "
+        f"{len(missing)} missing (e.g. {missing[:3]}), {len(unexpected)} "
+        f"unexpected (e.g. {unexpected[:3]})")
+    log(f"{tag} total loss per step: {losses}")
+    log(f"{tag} launches {launches}")
+    for key in ("val", "test"):
+        log(f"{tag} {key} {hist[key]}")
+    if (mismatched or not unexpected or not missing
+            or any(not k.startswith("pretrain_head.") for k in unexpected)
+            or any(not k.startswith(f"{head}.") for k in missing)
+            or trainer.pretrain_loaded != len(own) - len(missing)):
+        raise AssertionError(f"{tag} checkpoint load: mismatched "
+                             f"{mismatched}, missing {missing}, unexpected "
+                             f"{unexpected}, loaded "
+                             f"{trainer.pretrain_loaded} of {len(own)}")
+    if (n_train < 2 or not all(math.isfinite(x) for x in losses)
+            or len(set(losses)) < 2):
+        raise AssertionError(f"{tag} losses not finite, too few or not "
+                             f"moving: {losses}")
+    want = {k: n * (n_train + n_eval) for k, n in FT_PER_FORWARD.items()}
+    want.update({k: n * n_train for k, n in FT_PER_STEP.items()})
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want} "
+                             f"({n_train} train steps, {n_eval} eval "
+                             "batches)")
+    need = {target} | ({"txt_acc"} if head == "ground_head" else set()) | (
+        {f"type{t}_acc" for t in range(6)} if name == "sqa3d" else set())
+    for key in ("val", "test"):
+        if not hist[key]:
+            if key == "test" or trainer.epochs_per_eval == 1:
+                raise AssertionError(f"{tag} no {key} pass")
+            continue  # sqa3d_finetune.yaml evaluates every 5 epochs
+        res = hist[key][-1]
+        bad = {k: v for k, v in res.items()
+               if k != "best_result" and not 0.0 <= v <= 1.0}
+        if bad or not need <= set(res):
+            raise AssertionError(f"{tag} {key} metrics {res}, needs {need}")
+    items = {s: sum(len(ld.dataset) for ld in eval_loaders(trainer, s))
+             for s in ("train", "val", "test")}
+    answers = getattr(trainer.data_loaders["train"].dataset.dataset,
+                      "num_answers", None)
+    log(f"{tag} items per split {items}" + (
+        "" if answers is None else f", answer vocabulary {answers}"))
+    if name in FT_ANSWERS and answers != FT_ANSWERS[name]:
+        raise AssertionError(f"{tag} {answers} answers, expected "
+                             f"{FT_ANSWERS[name]}")
+    # the train loop's host clock per step, item building included: the
+    # metrics log's train rows, one written at each step's fetch
+    with open(os.path.join(trainer.cfg.exp_dir, "metrics.jsonl")) as f:
+        ts = [r["_ts"] for r in map(json.loads, f) if "train/total_loss" in r]
+    loop_step = (ts[-1] - ts[0]) / (len(ts) - 1)
+    log(f"{tag} train loop {loop_step:.4f} s a step (host clock between the "
+        f"steps' fetches, the batch's items built in this process)")
+    pnet = trainer.model.point_encoder.point_feature_extractor
+    info = {"config": config, "items": items, "answers": answers,
+            "train_steps": n_train, "eval_batches": n_eval,
+            "batch": batch, "losses": losses, "steady_step_s": steady,
+            "loop_step_s": loop_step,
+            "wall_s": wall, "peak_mem_gib": peak, "launches": launches,
+            "loaded": trainer.pretrain_loaded, "missing": len(missing),
+            "unexpected": len(unexpected),
+            "val": hist["val"][-1] if hist["val"] else None,
+            "test": hist["test"][-1]}
+    info["eval_check"] = check_finetune_eval(tag, trainer, head)
+    return info, trainer, pnet
+
+
+def phase_finetune(table, pretrain_exp_dir):
+    """The four ``configs/final/finetune`` configs (ScanRefer, ScanQA,
+    Nr3D, SQA3D) through ``run_torch.main`` from the ``best.pth`` the data
+    phase's all_pretrain run saved, on a tree of FT_TREE with its own QA
+    files; on the ScanRefer run's first train batch (B = 256), ``fps`` and
+    ``sa_group_mlp_pool`` at SA1 and SA2 and ``mha_*`` on one train step's
+    operands against their twins; that step's device time and busy
+    share."""
+    import shutil
+
+    import torch
+
+    from sceneverse_tpu_torch.trainer.build import to_device
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(pretrain_exp_dir, "ckpt", "best.pth")
+    if not os.path.isfile(ckpt):
+        raise AssertionError(f"[finetune] the all_pretrain run left no {ckpt}")
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    ckpt_shapes = {k: tuple(v.shape) for k, v in state.items()}
+    del state
+    root = os.path.join(REPO, "build", "smoke_finetune")
+    shutil.rmtree(root, ignore_errors=True)
+    write_finetune_tree(root)
+    log(f"[finetune] tree {FT_TREE} written (train scans "
+        f"{FT_TRAIN_SCANS}, val / test 1, QA items {FT_QA_ITEMS}); "
+        f"pretrain checkpoint {ckpt}")
+    out = {"tree": FT_TREE, "qa_items": FT_QA_ITEMS, "reduced": FT_REDUCED,
+           "ckpt": ckpt, "runs": {}}
+    for name in FT_RUNS:
+        info, trainer, pnet = _run_finetune(name, root, ckpt, ckpt_shapes)
+        out["runs"][name] = info
+        batch = None
+        if name == "scanrefer":
+            batch = next(iter(trainer.data_loaders["train"]))
+            dev = to_device(batch, trainer.device)
+            out["kernels"] = {"mha": mha_on_batch(table, trainer, dev,
+                                                  "finetune")}
+            step_ms, events = kernel_sum_ms(
+                lambda: trainer.train_forward_backward(dev))
+            out["device_step_ms"] = step_ms
+            out["busy"] = {"step": step_ms / 1e3 / info["steady_step_s"],
+                           "loop": step_ms / 1e3 / info["loop_step_s"]}
+            log(f"[finetune scanrefer] one train step at batch "
+                f"{info['batch']}: {step_ms:.2f} ms of device work "
+                f"({events} events, torch.profiler); busy share of the "
+                f"step (batch on the card to losses fetched) and of the "
+                f"train loop: {out['busy']}")
+            del dev
+        del trainer
+        _free()
+        if batch is not None:  # the run's own batch through SA1 and SA2
+            out["kernels"]["sa"] = sa_on_batch(
+                table, torch.as_tensor(batch["obj_fts"]), pnet, "finetune")
+        del pnet, batch
+        _free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[finetune] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def phase_trainer():
     """The trainer: remat, accumulation, the 240-step run with a resume at
     step 120, and the profile / NaN / eval.save switches."""
@@ -2176,10 +2585,13 @@ def main():
     entry = phase_entry(slices["frozen_exact"])
     trainer = phase_trainer()
     data = phase_data(table)
+    finetune = phase_finetune(table, data["run"]["exp_dir"])
     paths = {p: s["launches"] for p, s in slices.items()}
     paths["trainer"] = trainer["run"]["launches"]
     paths["data"] = data["run"]["launches"]
     paths["data_materialized"] = data["materialized"]["launches"]
+    for name, run in finetune["runs"].items():
+        paths[f"finetune_{name}"] = run["launches"]
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]
@@ -2206,7 +2618,7 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "trainer": trainer,
-                   "data": data, "card": card}, f,
+                   "data": data, "finetune": finetune, "card": card}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -13,7 +13,10 @@ read backwards:
     ``output.dense`` / ``output.LayerNorm``;
   * loc layer ``linear`` / ``norm`` -> Sequential ``0`` / ``1``;
     ``sem_cls_embed_layer_{linear,norm}`` -> ``sem_cls_embed_layer.{0,1}``;
-  * PointNet++ ``mlp.layers.K`` -> ``mlps.0.layerK``, BN ``bn`` -> ``bn.bn``.
+  * PointNet++ ``mlp.layers.K`` -> ``mlps.0.layerK``, BN ``bn`` -> ``bn.bn``;
+  * MLP heads ``*_head.{fc1,norm,fc2}`` -> Sequential ``*_head.{0,2,4}``;
+    QA head ``.mlp.fc.`` -> ``.mlp.fc.linear.``, ``answer_fc1`` /
+    ``answer_fc2`` -> ``answer_cls.0`` / ``answer_cls.3``.
 Non-``Param`` variables (``text_features``) pass through and load as
 buffers. The input is plain numpy keyed by dotted nnx path: this module
 never sees a JAX object.
@@ -41,6 +44,14 @@ _SEGMENTS = [
     ("loc_layers.0.norm.", "loc_layers.0.1."),
     ("sem_cls_embed_layer_linear.", "sem_cls_embed_layer.0."),
     ("sem_cls_embed_layer_norm.", "sem_cls_embed_layer.1."),
+    # MLP heads (get_mlp_head); "_head." also covers vis_cls_head, cls_head
+    ("_head.fc1.", "_head.0."),
+    ("_head.norm.", "_head.2."),
+    ("_head.fc2.", "_head.4."),
+    # QA head
+    (".mlp.fc.", ".mlp.fc.linear."),
+    (".answer_fc1.", ".answer_cls.0."),
+    (".answer_fc2.", ".answer_cls.3."),
 ]
 
 

@@ -69,19 +69,25 @@ class BaseEvaluator:
 
 
 def get_eval(name, cfg, **kwargs):
-    from sceneverse_tpu_torch.evaluator import pretrain_eval, scanrefer_eval
+    """One evaluator, or a list for a list of names (JAX
+    ``evaluator/build.py:119-124``)."""
+    from sceneverse_tpu_torch.evaluator import (  # noqa: F401 (registry)
+        pretrain_eval, referit3d_eval, scanqa_eval, scanrefer_eval,
+        sqa3d_eval)
 
-    del pretrain_eval, scanrefer_eval
-    return EVALUATOR_REGISTRY.get(name)(cfg, **kwargs)
+    if isinstance(name, str):
+        return EVALUATOR_REGISTRY.get(name)(cfg, **kwargs)
+    return [EVALUATOR_REGISTRY.get(n)(cfg, **kwargs) for n in name]
 
 
 def build_eval(cfg, **kwargs):
-    """JAX ``evaluator/build.py:128-140``: the {"train", "val"} dict or one
-    evaluator by ``eval.name`` (the per-val-dataset form is not ported)."""
+    """JAX ``evaluator/build.py:128-139``: the {"train", "val"} dict, one
+    evaluator by ``eval.name``, or one per val dataset
+    (``data.<dataset>.evaluator``)."""
     if cfg.select("eval.train") is not None:
         return {"train": get_eval(cfg.eval.train.name, cfg, **kwargs),
                 "val": get_eval(cfg.eval.val.name, cfg, **kwargs)}
     if cfg.select("eval.name") is not None:
         return get_eval(cfg.eval.name, cfg, **kwargs)
-    raise NotImplementedError(
-        "the per-val-dataset evaluators are not ported yet")
+    names = [cfg.data[dataset].evaluator for dataset in cfg.data.val]
+    return get_eval(names, cfg, **kwargs)

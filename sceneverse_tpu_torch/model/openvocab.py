@@ -3,7 +3,9 @@ reference model/openvocab.py:11-126): BERT text tower (utterance, and the
 scene caption as a second call when ``split_scene_cap_tower``, [CLS]-only
 in its final layer under ``SCENEVERSE_CAP_CLS_ONLY``),
 the PointNet++ + spatial vision tower, the unified encoder and the
-configured heads; og3d logits are fused objects . fused [CLS] text.
+configured heads (``OVPretrainHead``, ``GroundHeadV1`` / ``GroundHead``,
+``QAHeadV1``); og3d logits are fused objects . fused [CLS] text unless a
+ground head replaces them.
 
 ``model.remat`` / ``model.remat_policy`` (JAX :57-81) recompute the named
 towers' activations in the backward (``modules/utils.py::remat``): ``true``
@@ -51,8 +53,6 @@ class OpenVocab(nn.Module):
         self.unified_encoder = build_module("grounding", cfg.model.grounding)
         self.head_list = list(cfg.model.heads.head_list)
         for head in self.head_list:
-            if head != "pretrain_head":
-                raise NotImplementedError(f"head {head!r} is not ported yet")
             setattr(self, head, build_module("heads", cfg.model.heads[head]))
         self.inter = cfg.model.get("inter", "")
         self.use_scene_cap = cfg.data.args.get("use_scene_cap", False)
@@ -103,8 +103,11 @@ class OpenVocab(nn.Module):
             {"prefix": ("point_encoder",), "lr": _get_lr(m.vision, lr)},
             {"prefix": ("unified_encoder",), "lr": _get_lr(m.grounding, lr)},
         ]
-        for head in self.head_list:
-            groups.append({"prefix": (head,), "lr": _get_lr(m.heads[head], lr)})
+        # JAX's order (openvocab.py:141-145 there), whatever head_list's
+        for head in ("ground_head", "qa_head", "pretrain_head"):
+            if head in self.head_list:
+                groups.append({"prefix": (head,),
+                               "lr": _get_lr(m.heads[head], lr)})
         return groups
 
     def frozen_prefixes(self):
@@ -188,6 +191,22 @@ class OpenVocab(nn.Module):
         out["obj_cls_raw_logits"] = obj_cls_raw_logits
         out["og3d_logits"] = torch.einsum("bod,bd->bo", point_fuse,
                                           language_cls)
+        return self._run_heads(out, language_fuse, point_fuse, point_pre,
+                               data_dict)
+
+    def _run_heads(self, out, language_fuse, point_fuse, point_pre,
+                   data_dict):
+        """JAX :174-194: the ground head's og3d logits replace the dot
+        product's; the QA head writes the answer scores."""
+        if getattr(self, "ground_head", None) is not None:
+            (out["txt_cls_logits"], out["obj_cls_post_logits"],
+             out["obj_cls_pre_logits"], out["og3d_logits"]) = \
+                self.ground_head(language_fuse, point_fuse, point_pre,
+                                 data_dict["obj_masks"])
+        if getattr(self, "qa_head", None) is not None:
+            out["answer_scores"] = self.qa_head(
+                point_fuse, data_dict["obj_masks"], language_fuse,
+                data_dict["txt_masks"])
         if getattr(self, "pretrain_head", None) is not None:
             lm_in = self._lm_head_inputs(language_fuse, data_dict, out)
             out["txt_lm_cls_logits"], out["obj_cls_post_logits"] = \

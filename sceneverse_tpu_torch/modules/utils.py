@@ -12,7 +12,21 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from sceneverse_tpu_torch.utils.precision import LayerNorm
+
 BERT_STD = 0.02
+
+
+def get_mlp_head(input_size: int, hidden_size: int, output_size: int,
+                 dropout: float = 0.0) -> nn.Sequential:
+    """Linear -> ReLU -> LayerNorm(eps 1e-12) -> Dropout -> Linear
+    (JAX ``modules/utils.py::MlpHead``; reference modules/utils.py:18-25):
+    indices 0, 2 and 4 are the reference's names, which the checkpoint
+    converters map to JAX's ``fc1`` / ``norm`` / ``fc2``."""
+    return nn.Sequential(
+        nn.Linear(input_size, hidden_size), nn.ReLU(),
+        LayerNorm(hidden_size, eps=1e-12), Dropout(dropout),
+        nn.Linear(hidden_size, output_size))
 
 
 def get_activation_fn(name: str):

@@ -58,8 +58,14 @@ def test_the_import_check_sees_every_port_file():
         "build", "data_utils", "fixture", "materialized", "native",
         "tokenizer", "datasets/base", "datasets/constant",
         "datasets/data_augmentor", "datasets/dataset_wrapper",
-        "datasets/families")]
+        "datasets/families", "datasets/scannet_qa")]
+    finetune = [f"sceneverse_tpu_torch/{m}.py" for m in (
+        "common/__init__", "common/box_utils", "modules/heads/grounding_head",
+        "modules/heads/qa_head", "evaluator/common",
+        "evaluator/referit3d_eval", "evaluator/scanqa_eval",
+        "evaluator/sqa3d_eval")]
     assert set(data) <= set(PORT_FILES)
+    assert set(finetune) <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", CONFIGS)
