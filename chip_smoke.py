@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
+    python3 chip_smoke.py --ddp-child SPEC   # one rank of phase_ddp
 
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch / CUDA / nvcc versions and the card's name and power
@@ -107,7 +108,20 @@ Phases (any failure exits non-zero; nothing is caught):
      batch (256 x 80 objects) ``fps`` (bit-equal) and ``sa_group_mlp_pool``
      (SA_TOL) at SA1 and SA2, and ``mha_*`` on one train step's operands
      at B = 256; that step's device time and busy share.
-  9. prints the kernel table as one JSON line, the card line, and last
+  9. data parallel (``phase_ddp``): the card is one device and NCCL
+     refuses two ranks on one device, so ``run_torch.main`` runs the frozen
+     slice (3 steps, val and test over 97 items) and the unfrozen_fused
+     slice (2 steps) in child processes of this script (``--ddp-child``):
+     a world of 1 over NCCL at batch 32, then a world of 2 over gloo, both
+     ranks on cuda:0, at 16 a rank (gloo reduces CUDA tensors through host
+     memory); every dropout at 0. The two worlds' per-step losses, step-1
+     summed gradient, step-1 and final BatchNorm statistics, final
+     parameters and eval metrics against each other (``DDP_TOL``), every
+     rank's state bit-equal to rank 0's, every kernel of each path
+     launched on each rank (the fused ``sa_*`` exactly as often a step as
+     three fused levels need), launches and host-clock step times per
+     rank.
+ 10. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
@@ -115,6 +129,7 @@ The device-time breakdown of the same slices is ``profile_torch.py``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -2557,6 +2572,332 @@ def phase_finetune(table, pretrain_exp_dir):
     return out
 
 
+# --------------------------------------------------------------- data parallel
+# The card is one device and NCCL refuses two ranks on one device, so the
+# phase runs two worlds through run_torch.main in child processes: the
+# reference, a world of 1 over NCCL at the global batch, then a world of 2
+# over gloo on cuda:0 at half the batch a rank. Each child joins its world
+# by mesh.init_from_env from torchrun's variables and drives both runs.
+# frozen: 3 steps (97 items at 32: the drop-last loader), then val and test
+# over 97 items (odd: shards of 49 and 48); unfrozen_fused: 2 steps (65).
+DDP_RUNS = {
+    "frozen": (["data.synthetic_size=97"], {}),
+    "unfrozen_fused": (["model.vision.args.freeze=False",
+                        "data.synthetic_size=65"], FUSED_ENV),
+}
+DDP_WORLDS = ((1, "nccl"), (2, "gloo"))
+# 2 ranks against 1, dropout off. frozen: f32 summed in another order
+# (the CPU test measured 2.6e-7 relative L2 on the gradients). Parameters,
+# in units of lr x steps beyond 1e-5 max|p|: Adam normalises an element
+# whose gradient sits near its eps (1e-8 here) from a noisy value, so a
+# few elements take a visibly different fraction of their step; as
+# test_torch_slice.py holds them: none beyond 0.25 ("param_lr"), at most
+# 0.1% of a tensor's elements beyond 0.01 ("param_share"). Eval metrics
+# within one item of the split (an argmax may land the other way on a near
+# tie). unfrozen_fused: its bf16 rounding with (a, b) folded from the
+# moments flips roundings and pool argmaxes when the moments' summation
+# order changes (on the CPU a permutation of the rows alone moved its
+# losses by up to 3.6e-4, its gradients by 4.8% relative L2, deeper
+# statistics by 3.9e-4); SA1's three layers and SA2's first see no bf16
+# rounding before their moments and hold 1e-5 at step 1; after step 1 the
+# weights differ by up to 2 lr an element, so later steps are held to the
+# route's own bounds. Eval metrics: absolute, about one item of the smallest
+# subset (ScanRefer's unique / multiple items) for frozen, a few for fused
+DDP_TOL = {
+    "frozen": {"loss": 1e-5, "later_loss": 1e-5, "grad_l2": 1e-5,
+               "param_lr": 0.25, "param_share": 1e-3, "stat1": 0.0,
+               "stat1_exact": 0.0, "stat": 0.0, "eval_abs": 0.03},
+    "unfrozen_fused": {"loss": 2e-3, "later_loss": 1e-2, "grad_l2": 0.25,
+                       "param_lr": 2.0, "param_share": 1.0, "stat1": 2e-3,
+                       "stat1_exact": 1e-5, "stat": 1e-2, "eval_abs": 0.1},
+}
+DDP_EXACT_STATS = ("point_encoder.point_feature_extractor.encoder.0.",
+                   "point_encoder.point_feature_extractor.encoder.1.mlps.0."
+                   "layer0.")
+DDP_TIMEOUT_S = 400
+
+
+def ddp_child(spec):
+    """One rank: joins the world that torchrun's variables describe, then
+    drives each run through ``run_torch.main`` with every dropout at 0 (a
+    rank's dropout streams differ from one process's by design); keeps the
+    step-1 summed gradient (before the clip) and BatchNorm statistics, the
+    final state, and rank 0's state against every rank's."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    import run_torch
+    from sceneverse_tpu_torch.modules import utils as mutils
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.parallel import mesh
+    from sceneverse_tpu_torch.trainer import build as tbuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init = mutils.Dropout.__init__
+    mutils.Dropout.__init__ = lambda self, p: init(self, 0.0)
+    held = {}
+    build_trainer = tbuild.build_trainer
+
+    def build(cfg, device=None):
+        held["trainer"] = build_trainer(cfg, device=device)
+        return held["trainer"]
+
+    tbuild.build_trainer = build
+    reduce = mesh.all_reduce_flat
+
+    def reduce_and_keep(tensors):
+        reduce(tensors)
+        if len(tensors) > 1 and "grad" not in held:  # the optimizer's, step 1
+            held["grad"] = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+            held["stats1"] = {
+                n: b.detach().cpu().clone() for n, b in
+                held["trainer"].model.named_buffers() if "running" in n}
+
+    mesh.all_reduce_flat = reduce_and_keep
+    args = SLICE_ARGS + ["solver.log_every=1",
+                         f"dist_backend={spec['backend']}"]
+    made = mesh.init_from_env(run_torch.dist_backend(
+        run_torch.load_cfg(args)))
+    if not made or mesh.world() != spec["world"]:
+        raise AssertionError(f"[ddp] rank did not join a world of "
+                             f"{spec['world']}")
+    r = mesh.rank()
+    for name in spec["runs"]:
+        extra, env = DDP_RUNS[name]
+        held.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with gates(env):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = run_torch.main(args + extra + [
+                f"base_dir={os.path.join(spec['out'], name)}"])
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        trainer = out["trainer"]
+        state = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+        flat = torch.cat([v.float().reshape(-1) for v in state.values()])
+        ref = flat.clone()
+        if mesh.world() > 1:
+            dist.broadcast(ref, 0)
+        rank_diff = (flat - ref).abs().max()
+        if mesh.world() > 1:
+            dist.all_reduce(rank_diff, op=dist.ReduceOp.MAX)
+        hist = trainer.history
+        info = {"rank": r, "world": mesh.world(), "backend": spec["backend"],
+                "device": str(trainer.device), "launches": launches,
+                "rows": hist["train"], "val": hist["val"][-1],
+                "test": hist["test"][-1], "wall_s": wall,
+                "eval_batches": sum(len(ld) for s in ("val", "test")
+                                    for ld in eval_loaders(trainer, s)),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "rank_max_diff": float(rank_diff)}
+        lrs = {id(p): g["base_lr"] for g in trainer.optimizer.opt.param_groups
+               for p in g["params"]}
+        if r == 0:
+            torch.save({"grad": held["grad"], "stats1": held["stats1"],
+                        "state": {k: v.cpu() for k, v in state.items()},
+                        "lr": {n: lrs.get(id(p)) for n, p in
+                               trainer.model.named_parameters()}},
+                       os.path.join(spec["out"], f"{name}.pt"))
+        with open(os.path.join(spec["out"], f"{name}_r{r}.json"), "w") as f:
+            json.dump(info, f)
+        del out, trainer, state, flat, ref
+        held.clear()
+        _free()
+    mesh.shutdown()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_world(world, backend):
+    """The world's ranks as child processes of this script, all on cuda:0;
+    a child that exits non-zero (or outlives DDP_TIMEOUT_S) fails the
+    phase."""
+    import shutil
+
+    out = os.path.join(REPO, "build", "smoke_ddp", f"w{world}_{backend}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    spec = {"world": world, "backend": backend, "out": out,
+            "runs": list(DDP_RUNS)}
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-child",
+             json.dumps(spec)], env=env, cwd=REPO, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DDP_TIMEOUT_S - (time.perf_counter()
+                                                     - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                log(f"[ddp] world {world} rank {r} log tail:\n"
+                    + "".join(f.readlines()[-40:]))
+        raise AssertionError(f"[ddp] world {world} over {backend}: exit "
+                             f"codes {codes}")
+    info = {}
+    for name in DDP_RUNS:
+        info[name] = []
+        for r in range(world):
+            with open(os.path.join(out, f"{name}_r{r}.json")) as f:
+                info[name].append(json.load(f))
+    return out, info, time.perf_counter() - t0
+
+
+def _ddp_compare(name, ref_dir, dist_dir, ref, ranks):
+    """Errors of the 2-rank run against the 1-rank run (DDP_TOL)."""
+    import torch
+
+    tol = DDP_TOL[name]
+    a = torch.load(os.path.join(ref_dir, f"{name}.pt"), weights_only=True)
+    b = torch.load(os.path.join(dist_dir, f"{name}.pt"), weights_only=True)
+    err = {}
+    # per-step logged losses (global), relative to max(1, |ref|)
+    keys = [k for k in ref[0]["rows"][0] if k.endswith("loss")
+            or k in ("TextObjWithinBatch", "TextSceneBetweenBatch")]
+    n_steps = len(ref[0]["rows"])
+    for step in range(n_steps):
+        want = ref[0]["rows"][step]
+        for r in ranks:
+            got = r["rows"][step]
+            e = max(abs(got[k] - want[k]) / max(1.0, abs(want[k]))
+                    for k in keys)
+            key = "loss" if step == 0 else "later_loss"
+            err[key] = max(err.get(key, 0.0), e)
+    err["grad_l2"] = float((b["grad"] - a["grad"]).norm()
+                           / a["grad"].norm())
+    e1 = e1x = 0.0
+    for n, v in a["stats1"].items():
+        rel = float((b["stats1"][n] - v).abs().max()
+                    / v.abs().max().clamp_min(1e-30))
+        if n.startswith(DDP_EXACT_STATS):
+            e1x = max(e1x, rel)
+        else:
+            e1 = max(e1, rel)
+    err["stat1"], err["stat1_exact"] = e1, e1x
+    ep = eshare = es = 0.0
+    worst = None
+    for n, v in a["state"].items():
+        w = b["state"][n]
+        if not v.is_floating_point():
+            if not torch.equal(v, w):
+                raise AssertionError(f"[ddp {name}] {n}: {v} vs {w}")
+            continue
+        d = (w - v).abs()
+        lr = a["lr"].get(n)
+        if lr is not None:
+            units = (d - 1e-5 * v.abs().max()) / (lr * n_steps)
+            if units.max().item() > ep:
+                ep, worst = units.max().item(), n
+            eshare = max(eshare, (units > 0.01).float().mean().item())
+        elif "running" in n:
+            es = max(es, d.max().item() / max(v.abs().max().item(), 1e-30))
+        elif d.max().item():
+            raise AssertionError(f"[ddp {name}] {n}: not optimised, yet "
+                                 f"{d.max().item()} apart")
+    err["param_lr"], err["param_share"], err["stat"] = ep, eshare, es
+    err["eval_abs"] = max(abs(r[split][k] - v) for split in ("val", "test")
+                          for k, v in ref[0][split].items() for r in ranks)
+    bad = {k: (v, tol[k]) for k, v in err.items() if not v <= tol[k]}
+    return err, bad, worst
+
+
+def phase_ddp():
+    """Data parallelism on the one card: the frozen and the unfrozen_fused
+    run (DDP_RUNS, at SLICE_ARGS widths, f32, dropout off) in a world of 1
+    over NCCL at batch 32, then in a world of 2 over gloo on cuda:0 at 16
+    a rank; the 2-rank world against the 1-rank one (DDP_TOL), every rank
+    bit-equal to rank 0, every kernel of each path launched on each rank
+    (the fused ``sa_*`` kernels exactly as often per step as three fused
+    levels need), launch counts and host-clock step times per rank."""
+    t_phase = time.perf_counter()
+    worlds = {}
+    for world, backend in DDP_WORLDS:
+        worlds[world] = _ddp_world(world, backend)
+        log(f"[ddp] world {world} over {backend}: both runs in "
+            f"{worlds[world][2]:.1f} s (host clock, process starts "
+            "included)")
+    (ref_dir, ref_info, _), (dist_dir, dist_info, _) = worlds[1], worlds[2]
+    out, failed = {"runs": {}}, {}
+    for name in DDP_RUNS:
+        ref, ranks = ref_info[name], dist_info[name]
+        tag = f"[ddp {name}]"
+        err, bad, worst = _ddp_compare(name, ref_dir, dist_dir, ref, ranks)
+        steps = [[row["step_s"] for row in r["rows"]] for r in ref + ranks]
+        for world, rs in ((1, ref), (2, ranks)):
+            for r in rs:
+                st = [row["step_s"] for row in r["rows"]]
+                log(f"{tag} world {world} over {r['backend']} rank "
+                    f"{r['rank']} on {r['device']}: losses "
+                    f"{[round(row['total_loss'], 6) for row in r['rows']]}, "
+                    f"step_s {[round(s, 4) for s in st]} (host clock), "
+                    f"steady {statistics.mean(st[1:]):.4f} s, eval "
+                    f"batches {r['eval_batches']}, peak "
+                    f"{r['peak_mem_gib']:.2f} GiB, launches {r['launches']}")
+        for r in ref + ranks:
+            where = f"world {r['world']} rank {r['rank']}"
+            missing = [k for k in PATHS[name][1]
+                       if r["launches"].get(k, 0) <= 0]
+            if missing:
+                bad[f"{where} never launched"] = missing
+            if name == "unfrozen_fused":
+                n = len(r["rows"])
+                for k, per in SA_TRAIN_PER_STEP.items():
+                    if r["launches"].get(k, 0) != per * n:
+                        bad[f"{where} {k} launches"] = (
+                            r["launches"].get(k, 0), per * n)
+            if r["rank_max_diff"] != 0.0:
+                bad[f"{where} state against rank 0"] = r["rank_max_diff"]
+            if len(r["rows"]) != len(ref[0]["rows"]):
+                bad[f"{where} steps"] = len(r["rows"])
+        log(f"{tag} world 2 (gloo) against world 1 (nccl): " + ", ".join(
+            f"{k} {v:.3g} (tol {DDP_TOL[name][k]})" for k, v in err.items())
+            + f"; the largest parameter difference in {worst}")
+        if bad:
+            failed[name] = bad
+        out["runs"][name] = {
+            "errors": err, "tol": DDP_TOL[name], "worst_param": worst,
+            "launches": {f"w{r['world']}_r{r['rank']}": r["launches"]
+                         for r in ref + ranks},
+            "step_s": {f"w{r['world']}_r{r['rank']}": s
+                       for r, s in zip(ref + ranks, steps)},
+            "peak_mem_gib": {f"w{r['world']}_r{r['rank']}": r["peak_mem_gib"]
+                             for r in ref + ranks},
+            "val": [r["val"] for r in ref + ranks],
+            "test": [r["test"] for r in ref + ranks]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[ddp] phase took {out['seconds']:.1f} s")
+    if failed:
+        raise AssertionError(f"[ddp] beyond tolerance: {failed}")
+    return out
+
+
 def phase_trainer():
     """The trainer: remat, accumulation, the 240-step run with a resume at
     step 120, and the profile / NaN / eval.save switches."""
@@ -2586,12 +2927,17 @@ def main():
     trainer = phase_trainer()
     data = phase_data(table)
     finetune = phase_finetune(table, data["run"]["exp_dir"])
+    ddp = phase_ddp()
     paths = {p: s["launches"] for p, s in slices.items()}
     paths["trainer"] = trainer["run"]["launches"]
     paths["data"] = data["run"]["launches"]
     paths["data_materialized"] = data["materialized"]["launches"]
     for name, run in finetune["runs"].items():
         paths[f"finetune_{name}"] = run["launches"]
+    for name, run in ddp["runs"].items():  # every rank of both worlds
+        paths[f"ddp_{name}"] = dict(sum(
+            (collections.Counter(n) for n in run["launches"].values()),
+            collections.Counter()))
     kernels = []
     for name, (src, rep) in SOURCES.items():
         row = table.rows[name]
@@ -2618,7 +2964,8 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "trainer": trainer,
-                   "data": data, "finetune": finetune, "card": card}, f,
+                   "data": data, "finetune": finetune, "ddp": ddp,
+                   "card": card}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -2628,4 +2975,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-child"]:
+        ddp_child(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -4,6 +4,8 @@ with run.py's surface.
 Usage:
     python run_torch.py --config-path configs/final \
         --config-name synthetic_pretrain [key.sub=value ...]
+    torchrun --nproc_per_node=N run_torch.py --config-path configs/final \
+        --config-name all_pretrain [key.sub=value ...]
 
 Loads the YAML config with dotted overrides (with ``resume=True`` and an
 ``exp_dir``, the config snapshotted there, as run.py does), names and
@@ -12,6 +14,17 @@ resolved config, builds the port's trainer, runs it and waits for its
 checkpoint writes. The trainer runs on the CUDA
 card, and raises when there is none, unless ``device=cpu`` asks for the CPU.
 Imports nothing of JAX or of the JAX package.
+
+Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``) each process joins one process group
+and runs one trainer on ``cuda:LOCAL_RANK`` over its rows of the global
+batch ``dataloader.batchsize`` (``sceneverse_tpu_torch/parallel/mesh.py``).
+The backend is ``nccl`` on CUDA and ``gloo`` with ``device=cpu``;
+``dist_backend=`` names another (``gloo`` runs several ranks on one card,
+which NCCL refuses). A failed init raises; nothing falls back. The ranks
+take rank 0's ``exp_dir``, rank 0 writes the config snapshot, and the
+process group ends with the run. A process group made by the caller is
+used as it is and left open.
 """
 
 from __future__ import annotations
@@ -71,21 +84,37 @@ def load_cfg(argv=None):
     return cfg
 
 
+def dist_backend(cfg) -> str:
+    if cfg.get("dist_backend"):
+        return str(cfg.dist_backend)
+    return "gloo" if str(cfg.get("device") or "cuda").startswith(
+        "cpu") else "nccl"
+
+
 def main(argv=None):
     from sceneverse_tpu_torch.config import save_config
+    from sceneverse_tpu_torch.parallel import mesh
 
     cfg = load_cfg(argv)
-    os.makedirs(cfg.exp_dir, exist_ok=True)
-    save_config(cfg, str(Path(cfg.exp_dir) / "config.yaml"))
+    made = mesh.init_from_env(dist_backend(cfg))
+    try:
+        cfg.exp_dir = mesh.all_gather_objects(cfg.exp_dir)[0]
+        if mesh.rank() == 0:
+            os.makedirs(cfg.exp_dir, exist_ok=True)
+            save_config(cfg, str(Path(cfg.exp_dir) / "config.yaml"))
 
-    from sceneverse_tpu_torch.ckpt.checkpoint import wait_for_checkpoints
-    from sceneverse_tpu_torch.trainer.build import build_trainer
+        from sceneverse_tpu_torch.ckpt.checkpoint import wait_for_checkpoints
+        from sceneverse_tpu_torch.trainer.build import build_trainer
 
-    trainer = build_trainer(cfg)
-    print(f"[run_torch] trainer {type(trainer).__name__} on {trainer.device}, "
-          f"exp_dir {cfg.exp_dir}", flush=True)
-    results = trainer.run()
-    wait_for_checkpoints()
+        trainer = build_trainer(cfg)
+        print(f"[run_torch] trainer {type(trainer).__name__} on "
+              f"{trainer.device}, rank {mesh.rank()} of {mesh.world()}, "
+              f"exp_dir {cfg.exp_dir}", flush=True)
+        results = trainer.run()
+        wait_for_checkpoints()
+    finally:
+        if made:
+            mesh.shutdown()
     return {"results": results, "trainer": trainer}
 
 

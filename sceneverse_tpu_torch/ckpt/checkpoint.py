@@ -12,7 +12,8 @@ in place and cannot clobber the copy), then a background thread writes the
 file under a temporary name and ``os.replace``s it into place, the analog
 of orbax's finalising rename. A new save first drains the one in flight;
 loads, ``latest_checkpoint`` and process exit drain too. A failed write is
-raised by the next drain, never dropped.
+raised by the next drain, never dropped. Over a data-parallel world only
+rank 0 writes (the ranks hold the same state).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import zipfile
 from pathlib import Path
 
 import torch
+
+from sceneverse_tpu_torch.parallel import mesh
 
 TMP_SUFFIX = ".tmp"
 
@@ -71,8 +74,10 @@ def _write(state: dict, path: Path) -> None:
 
 def save_checkpoint(path, state: dict, block: bool = False) -> None:
     """Copy ``state`` to host memory now and write it to ``path`` in the
-    background (``block`` waits for the write)."""
+    background (``block`` waits for the write); on rank 0 only."""
     global _PENDING
+    if mesh.rank() != 0:
+        return
     wait_for_checkpoints()
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)

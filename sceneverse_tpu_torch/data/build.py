@@ -10,8 +10,16 @@ numpy collate otherwise), or, for ``data.args.materialized: fast`` on the
 train split, with ``materialized.MaterializedBatchLoader``.
 
 Batches are numpy arrays with no workers and CPU tensors with workers;
-``trainer/build.py::to_device`` takes both. The JAX package's per-process
-eval sharding is not ported: the port runs one process.
+``trainer/build.py::to_device`` takes both.
+
+``dataloader.batchsize`` is the global batch. Over a world of N processes
+(``parallel/mesh.py``) each rank loads b = batch / N rows: in training,
+rows ``[r b, (r + 1) b)`` of every global batch, all ranks drawing the
+same permutation from the generator seeded by ``rng_seed``, so the ranks'
+batches of a step, concatenated, are the one-process batch and each rank
+builds only its own items; in evaluation, its uneven contiguous shard of
+each dataset (``sharding.ShardedDataset``, JAX ``data/build.py:184-193``),
+which the evaluators' cross-rank (value, count) sums make exact.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 from torch.utils.data import ConcatDataset
 
+from sceneverse_tpu_torch.parallel import mesh
 from sceneverse_tpu_torch.registry import Registry
 
 DATASET_REGISTRY = Registry("dataset")
@@ -95,24 +104,46 @@ def shm_collate(items: list) -> dict:
     }
 
 
+class RankBatches:
+    """This rank's rows of each global batch a ``BatchSampler`` yields."""
+
+    def __init__(self, batches, rows: slice):
+        self.batches, self.rows = batches, rows
+
+    def __iter__(self):
+        for batch in self.batches:
+            yield batch[self.rows]
+
+    def __len__(self):
+        return len(self.batches)
+
+
 def _make_loader(dataset, cfg, shuffle, drop_last):
     import torch
-    from torch.utils.data import DataLoader
+    from torch.utils.data import BatchSampler, DataLoader, RandomSampler
 
     workers = int(cfg.dataloader.get("num_workers", 0))
+    batch = int(cfg.dataloader.batchsize)
+    rows = mesh.rank_rows(batch, mesh.world(), mesh.rank())
     # a generator of its own, as JAX ``data/build.py::_seeded_generator``:
     # iterating one loader moves no other loader's shuffle
     gen = torch.Generator().manual_seed(int(cfg.get("rng_seed", 42)))
+    if shuffle:
+        # DataLoader(shuffle=True)'s sampler and generator draws, so one
+        # rank sees the batches of the single-process loader
+        sampling = {"batch_sampler": RankBatches(BatchSampler(
+            RandomSampler(dataset, generator=gen), batch, drop_last), rows)}
+    else:
+        sampling = {"batch_size": rows.stop - rows.start,
+                    "drop_last": drop_last}
     return DataLoader(
         dataset,
-        batch_size=int(cfg.dataloader.batchsize),
         num_workers=workers,
         collate_fn=shm_collate if workers > 0 else numpy_collate,
         pin_memory=False,
-        shuffle=shuffle,
-        drop_last=drop_last,
         persistent_workers=workers > 0,
         generator=gen,
+        **sampling,
         # workers hold numpy only and must never touch the parent's CUDA
         # context: spawn, not fork; persistent_workers pays the start once
         multiprocessing_context="spawn" if workers > 0 else None,
@@ -132,6 +163,11 @@ def build_dataloader(cfg, split="train"):
     dataset = get_dataset(cfg, split)
     if split == "train":
         return _make_loader(dataset, cfg, shuffle=True, drop_last=True)
+    if mesh.world() > 1:
+        from sceneverse_tpu_torch.data.sharding import ShardedDataset
+
+        dataset = [ShardedDataset(ds, mesh.world(), mesh.rank())
+                   for ds in dataset]
     loaders = [
         _make_loader(ds, cfg, shuffle=False, drop_last=False) for ds in dataset
     ]

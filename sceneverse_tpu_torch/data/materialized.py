@@ -53,6 +53,7 @@ import numpy as np
 from sceneverse_tpu_torch.data.build import DATASET_REGISTRY
 from sceneverse_tpu_torch.data.datasets.base import ScanBase
 from sceneverse_tpu_torch.data.tokenizer import get_tokenizer
+from sceneverse_tpu_torch.parallel import mesh
 
 STORE_VERSION = 3
 
@@ -654,12 +655,19 @@ class MaterializedBatchLoader:
         return pts
 
     def __iter__(self):
+        """Global batches; over a world of N processes each rank builds the
+        whole global batch, as every JAX process does (the crops' random
+        fills draw from one stream in item order), and keeps its
+        ``mesh.rank_rows``."""
         rng = np.random.default_rng((self.seed, self.epoch))
         self.epoch += 1
         order = rng.permutation(self.n_items)
+        rows = mesh.rank_rows(self.batch_size, mesh.world(), mesh.rank())
         for b in range(len(self)):
-            yield self._assemble(
+            batch = self._assemble(
                 order[b * self.batch_size:(b + 1) * self.batch_size], rng)
+            yield batch if mesh.world() == 1 else {
+                k: v[rows] for k, v in batch.items()}
 
 
 def build_materialized_train_loader(cfg):
@@ -675,7 +683,12 @@ def build_materialized_train_loader(cfg):
             f"schema; got wrapper {wrapper!r}")
     import sceneverse_tpu_torch.data.datasets.families  # noqa: F401 (registry)
 
-    stores = [ensure_materialized(cfg, n, "train") for n in names]
+    # rank 0 writes a missing store; the others read it after the barrier
+    if mesh.rank() == 0:
+        stores = [ensure_materialized(cfg, n, "train") for n in names]
+    mesh.barrier()
+    if mesh.rank() != 0:
+        stores = [ensure_materialized(cfg, n, "train") for n in names]
     return MaterializedBatchLoader(cfg, stores)
 
 

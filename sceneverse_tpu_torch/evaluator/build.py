@@ -1,11 +1,13 @@
 """Evaluator protocol (port of sceneverse_tpu/evaluator/build.py):
 ``batch_metrics`` returns ``{name: (value, count)}`` with ``include_count``
 (device tensors, no host sync), ``update`` accumulates, ``record``
-ratio-reduces on the host once and tracks the best ``target_metric``.
-With ``eval.save`` an evaluator gathers per-item rows in ``eval_results``
-and ``record`` writes them to
-``<exp_dir>/eval_results/<Evaluator>/results.json`` (JAX
-``evaluator/build.py:64-73,109-111``)."""
+sums every (value, count) over the ranks of a data-parallel world (JAX
+``evaluator/build.py:48-53,105-107``: each rank evaluated its own shard,
+``data/sharding.py``), ratio-reduces on the host once and tracks the best
+``target_metric``. With ``eval.save`` an evaluator gathers per-item rows
+in ``eval_results`` and ``record`` writes every rank's, in rank order (the
+shards' order), to ``<exp_dir>/eval_results/<Evaluator>/results.json`` on
+rank 0 (JAX ``evaluator/build.py:64-73,109-111``)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from pathlib import Path
 
 import torch
 
+from sceneverse_tpu_torch.common.misc import gather_dict
+from sceneverse_tpu_torch.parallel import mesh
 from sceneverse_tpu_torch.registry import Registry
 
 EVALUATOR_REGISTRY = Registry("EVALUATOR")
@@ -54,11 +58,15 @@ class BaseEvaluator:
             acc[1] = acc[1] + count
 
     def record(self):
-        out = {k: float(v) / max(float(c), 1.0)
-               for k, (v, c) in self.eval_dict.items()}
+        sums = gather_dict({k: [float(v), float(c)]
+                            for k, (v, c) in self.eval_dict.items()})
+        out = {k: float(sums[k][0]) / max(float(sums[k][1]), 1.0)
+               for k in self.eval_dict}
         if self.save:
-            with (self.save_dir / "results.json").open("w") as f:
-                json.dump(self.eval_results, f)
+            rows = mesh.all_gather_objects(self.eval_results)
+            if mesh.rank() == 0:
+                with (self.save_dir / "results.json").open("w") as f:
+                    json.dump([r for part in rows for r in part], f)
         out["target_metric"] = out[self.target_metric]
         is_best = out["target_metric"] > self.best_result
         if is_best:

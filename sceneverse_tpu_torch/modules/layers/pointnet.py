@@ -31,6 +31,12 @@ compute in bf16, BatchNorm takes its batch moments and running statistics
 in f32 and returns bf16 (``SCENEVERSE_BN_BF16``, default on), ReLU and the
 max-pool run in that type. The point ops, the grouping and the frozen
 kernels keep their own f32 / bf16 numerics with autocast off.
+
+Train-mode BatchNorm is synchronised over a data-parallel world on all
+three routes (``parallel/mesh.py::global_sums``: the rows' sums, sums of
+squares or Gram, and the row count, summed over the ranks in one
+collective before the moments are formed), as the JAX package's global
+batch makes it; the running statistics move identically on every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from sceneverse_tpu_torch.ops.pointops import (ball_query, gather_points,
 from sceneverse_tpu_torch.ops.sa_forward import (_bf16, fold_shared_mlp, fps,
                                                 fused_sa_forward)
 from sceneverse_tpu_torch.ops.sample_group import sample_and_group
+from sceneverse_tpu_torch.parallel import mesh
 
 
 def _gate(name: str, default: str) -> bool:
@@ -120,20 +127,21 @@ class _BatchNorm(nn.Module):
         """flax ``nnx.BatchNorm`` over every axis but the last.
 
         Train mode normalises with the batch's biased variance in flax's
-        fast form, ``max(E[h^2] - E[h]^2, 0)``, and moves the running
-        statistics by ``update_running``. Eval mode uses the running
-        statistics. Moments and normalisation are f32 whatever ``h`` is
-        (flax's ``_compute_stats`` / ``_normalize``); the result is cast to
-        ``bn_out_dtype``."""
+        fast form, ``max(E[h^2] - E[h]^2, 0)``, over the rows of every
+        rank, and moves the running statistics by ``update_running``. Eval
+        mode uses the running statistics. Moments and normalisation are f32
+        whatever ``h`` is (flax's ``_compute_stats`` / ``_normalize``); the
+        result is cast to ``bn_out_dtype``."""
         bn = self.bn
         out_dtype = bn_out_dtype(h)
         with _no_autocast(h):
             h32 = _at_least_f32(h)
             if bn.training:
                 rows = h32.reshape(-1, h32.shape[-1])
-                mean = rows.mean(0)
-                var = torch.clamp_min((rows * rows).mean(0) - mean * mean,
-                                      0.0)
+                (s, q), n = mesh.global_sums(
+                    (rows.sum(0), (rows * rows).sum(0)), rows.shape[0])
+                mean = s / n
+                var = torch.clamp_min(q / n - mean * mean, 0.0)
                 self.update_running(mean, var)
             else:
                 mean, var = bn.running_mean, bn.running_var
@@ -160,13 +168,15 @@ class ConvBNReLU(nn.Module):
         mean and Gram ``E[x x^T]`` (f32, full precision: TF32 must be off,
         as ``Precision.HIGHEST`` is in JAX), so BatchNorm becomes a
         per-channel affine in the conv's epilogue. The running statistics
-        move by flax's rule with this biased ``var_h``."""
+        move by flax's rule with this biased ``var_h``; the input moments
+        are over the rows of every rank."""
         bn = self.bn.bn
         out_dtype = bn_out_dtype(x)
         with _no_autocast(x):
             xr = _at_least_f32(x.reshape(-1, x.shape[-1]))
-            mu_in = xr.mean(0)
-            gram = (xr.t() @ xr) / xr.shape[0]
+            (s, g), n = mesh.global_sums((xr.sum(0), xr.t() @ xr),
+                                         xr.shape[0])
+            mu_in, gram = s / n, g / n
             a, b, mean_h, var_h = sa_train.fold_moments(
                 _at_least_f32(self.conv.weight.t()), mu_in, gram, bn.weight,
                 bn.bias, bn.eps)

@@ -68,13 +68,20 @@ class AttentionSeed(nn.Module):
                                  generator=self.seed_generator))
 
 
-def set_generators(model: nn.Module, seed: int, device) -> None:
+def set_generators(model: nn.Module, seed: int, device,
+                   rank: int = 0) -> None:
     """Give every dropout of ``model`` one explicit device generator and
-    every attention-seed stream one host generator, both from ``seed``."""
+    every attention-seed stream one host generator, both from ``(seed,
+    rank)``: rank 0 draws as one process does, the other ranks of a
+    data-parallel world from streams of their own, so one rank's dropout
+    differs from a single process's over the same rows by design, as the
+    reference's per-rank streams do (and as the documented dropout
+    difference of JAX ``mha.py:41-44``)."""
+    base = seed + 2_000_006 * rank
     dev = torch.Generator(device=device)
-    dev.manual_seed(seed)
+    dev.manual_seed(base)
     host = torch.Generator()
-    host.manual_seed(seed + 1)
+    host.manual_seed(base + 1)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = dev

@@ -49,9 +49,11 @@ all four share the kernels' names. Bound: the bf16 products at 989
 TFLOP/s (about 2.5 TFLOP per training step over the three levels) against
 the f32 rows read from device memory.
 
-Left out: the ``axis_name`` / ``shard_map`` psum of the moments (SyncBN
-over a data-parallel mesh), which waits for the port's DDP. The grouped
-rows are taken as ``(R, C)`` row-major, as ``ball_group`` and
+Over a data-parallel world the sums ``(s, g)`` of every layer and the row
+count R are summed over the ranks before ``fold`` (SyncBN,
+``parallel/mesh.py::global_sums``), as JAX's ``pmean_moments`` psums them
+over the mesh's axis (``sa_train.py:517-525``); the kernels are the same.
+The grouped rows are taken as ``(R, C)`` row-major, as ``ball_group`` and
 ``group_points`` produce them: the ``(C, R)`` transpose of the TPU kernels
 exists only for Mosaic's lane padding.
 """
@@ -65,6 +67,7 @@ import torch
 
 from sceneverse_tpu_torch.ops import _build
 from sceneverse_tpu_torch.ops.sa_forward import _bf16
+from sceneverse_tpu_torch.parallel import mesh
 
 # rows of the kernels' tiles (``PB_BM``); ``sa_pool`` takes whole centers
 # per tile
@@ -438,15 +441,16 @@ def fused_trainable_sa_fn(x, convs, bns, ns: int):
     convs (W1, W2, W3), W_j (C_j, H_j); bns[j] = (scale, bias, eps).
 
     Returns (pooled (R // ns, H3) f32, ((mean_h, var_h) per layer)) for the
-    running-statistics updates (JAX ``sa_train.py:505-565``, without the
-    cross-device psum)."""
+    running-statistics updates (JAX ``sa_train.py:505-565``); the moments
+    are over the rows of every rank."""
     with torch.autocast(x.device.type, enabled=False):
         R = x.shape[0]
         x32 = x.float()
 
         def fold(j, s, g):
             scale, bias, eps = bns[j]
-            return fold_moments(convs[j].float(), s / R, g / R, scale, bias,
+            (s, g), n = mesh.global_sums((s, g), R)
+            return fold_moments(convs[j].float(), s / n, g / n, scale, bias,
                                 eps)
 
         a1, b1, mh1, vh1 = fold(0, x32.sum(0), x32.t() @ x32)

@@ -18,7 +18,11 @@ every group are not optimised. Matches the JAX package's optax chain:
     are; every ``accum``-th call clips that mean, takes the AdamW step at
     ``schedule(step_count)`` and clears it. ``step_count`` counts optimizer
     steps, and the state dict carries the mean and the micro-step, so a
-    resume inside a group continues exactly.
+    resume inside a group continues exactly;
+  * over a data-parallel world (``parallel/mesh.py``) each rank's gradient
+    is that of its share of the global-batch loss, so the ranks' gradients
+    are summed, once per optimizer step (after the group's last micro-step
+    under ``accum``) and before the clip, as one flat all-reduce.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from sceneverse_tpu_torch.optim.scheduler import get_schedule_fn
+from sceneverse_tpu_torch.parallel import mesh
 
 
 def _no_decay(model: nn.Module, name: str) -> bool:
@@ -99,6 +104,7 @@ class GPSOptimizer:
             if self.mini_step < self.accum:
                 return False
             torch._foreach_copy_(grads, self.acc)
+        mesh.all_reduce_flat(grads)
         if self.grad_norm is not None:
             # optax clip_by_global_norm: g / ||g|| * max_norm when ||g|| >=
             # max_norm, else g unchanged (divide and multiply by 1); two

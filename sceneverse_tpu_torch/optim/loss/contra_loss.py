@@ -1,8 +1,14 @@
 """Contrastive losses (port of sceneverse_tpu/optim/loss/contra_loss.py).
 
-On one card the reference's global-batch all-gather is the identity.
-``logit_scale`` is a buffer: the reference never optimises it (its optimizer
-is built from ``get_opt_params`` only), a quirk kept on purpose."""
+Over a data-parallel world (``parallel/mesh.py``) each rank returns its
+rows' share of the global-batch loss (``loss.py``): the in-scene loss is a
+mean over the global batch; the between-batch losses build their B x B
+logits from this rank's rows against the global batch that
+``all_gather_rows`` gathers (the reference's all_gather, contra_loss.py:
+61-64), so the ranks' shares add up to the one-process loss and its
+gradient. ``logit_scale`` is a buffer: the reference never optimises it
+(its optimizer is built from ``get_opt_params`` only), a quirk kept on
+purpose."""
 
 from __future__ import annotations
 
@@ -13,7 +19,9 @@ from torch import nn
 
 from sceneverse_tpu_torch.optim.loss.loss import (LOSS_REGISTRY,
                                                   bce_with_logits,
-                                                  cross_entropy)
+                                                  cross_entropy, global_rows,
+                                                  share_mean)
+from sceneverse_tpu_torch.parallel import mesh
 
 
 def _l2norm(x):
@@ -56,10 +64,10 @@ class TextObjWithinBatch(nn.Module):
                     f"{tuple(logits.shape)}")
             return bce_with_logits(logits, labels.float(),
                                    weight=masks.float()).sum() / \
-                labels.shape[0]
+                global_rows(labels)
         labels = labels[..., -1] if labels.dim() > 1 else labels
         logits = logits.masked_fill(~masks.bool(), float("-inf"))
-        return cross_entropy(logits, labels).mean()
+        return share_mean(cross_entropy(logits, labels))
 
 
 class _BetweenBatchBase(nn.Module):
@@ -69,12 +77,16 @@ class _BetweenBatchBase(nn.Module):
             math.exp(math.log(1.0 / 0.07)), dtype=torch.float32))
 
     def _symmetric_infonce(self, a, b):
+        """This rank's rows of the symmetric InfoNCE over the global batch:
+        its ``b`` rows against every ``a`` and its ``a`` rows against every
+        ``b``, the positives on the diagonal of the global batch."""
         scale = self.logit_scale.clamp(max=100.0)
-        labels = torch.arange(a.shape[0], device=a.device)
-        ab = scale * (b @ a.t())
-        ba = scale * (a @ b.t())
-        return (cross_entropy(ab, labels).mean()
-                + cross_entropy(ba, labels).mean()) / 2
+        n = a.shape[0]
+        labels = torch.arange(n, device=a.device) + mesh.rank() * n
+        ab = scale * (b @ mesh.all_gather_rows(a).t())
+        ba = scale * (a @ mesh.all_gather_rows(b).t())
+        return (share_mean(cross_entropy(ab, labels))
+                + share_mean(cross_entropy(ba, labels))) / 2
 
 
 @LOSS_REGISTRY.register()

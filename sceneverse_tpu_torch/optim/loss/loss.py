@@ -4,13 +4,21 @@ sceneverse_tpu/optim/loss/loss.py; reference optim/loss/loss.py).
 Cross entropy is the JAX package's ``lse - picked`` form with clamped
 labels: callers mask out-of-range labels (pad labels -100 carry mask 0 and
 count nothing). BCE is torch's ``binary_cross_entropy_with_logits``
-formula, summed and divided by the batch where the reference does."""
+formula, summed and divided by the batch where the reference does.
+
+Every loss is global-batch math over a data-parallel world
+(``parallel/mesh.py``): a rank returns its own rows' share, the numerator
+summed over its rows and the denominator global (a fixed count times the
+world, a data-dependent count summed over the ranks), so the ranks' shares
+add up to the one-process loss and their summed gradients to its
+gradient. In a world of 1 each is the plain formula."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from sceneverse_tpu_torch.parallel import mesh
 from sceneverse_tpu_torch.registry import Registry
 
 LOSS_REGISTRY = Registry("loss")
@@ -38,24 +46,41 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     return loss if weight is None else loss * weight
 
 
+def share_mean(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the mean of ``x`` over the global batch (every
+    rank holds as many elements)."""
+    return x.mean() / mesh.world()
+
+
+def global_rows(x: torch.Tensor) -> int:
+    """The global batch of the rows of ``x``."""
+    return x.shape[0] * mesh.world()
+
+
+def global_count(mask: torch.Tensor) -> torch.Tensor:
+    """The number of set entries of ``mask`` over every rank (at least 1)."""
+    return mesh.all_reduce_sum(mask.sum()).clamp_min(1.0)
+
+
 def og3d_loss(d):
-    return cross_entropy(d["og3d_logits"], d["tgt_object_id"][..., 0]).mean()
+    return share_mean(cross_entropy(d["og3d_logits"],
+                                    d["tgt_object_id"][..., 0]))
 
 
 def og3d_multi_loss(d):
     tgt = d["tgt_object_id"].float()
-    return bce_with_logits(d["og3d_logits"], tgt).sum() / tgt.shape[0]
+    return bce_with_logits(d["og3d_logits"], tgt).sum() / global_rows(tgt)
 
 
 def txt_cls_multi_loss(d):
     tgt = d["tgt_object_label"].float()
-    return bce_with_logits(d["txt_cls_logits"], tgt).sum() / tgt.shape[0]
+    return bce_with_logits(d["txt_cls_logits"], tgt).sum() / global_rows(tgt)
 
 
 def _masked_obj_ce(logits, labels, mask, smoothing=0.0):
     ce = cross_entropy(logits, labels, smoothing) * (labels >= 0)
     m = mask.float()
-    return (ce * m).sum() / m.sum().clamp_min(1.0)
+    return (ce * m).sum() / global_count(m)
 
 
 def obj_cls_raw_loss(d):
@@ -76,7 +101,7 @@ def obj_cls_post_loss(d):
 def answer_loss(d):
     tgt = d["answer_label"].float()
     scores = d["answer_scores"]
-    return bce_with_logits(scores, tgt).sum() / scores.shape[0]
+    return bce_with_logits(scores, tgt).sum() / global_rows(scores)
 
 
 def lm_cls_loss(d):
@@ -85,7 +110,7 @@ def lm_cls_loss(d):
         labels = labels.reshape(-1, labels.shape[-1])
     ce = cross_entropy(d["txt_lm_cls_logits"], labels)
     valid = (labels != -1).float()
-    return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+    return (ce * valid).sum() / global_count(valid)
 
 
 def _sem_mask_obj_ce(d, key, unmask: bool):
@@ -118,7 +143,7 @@ def obj_cls_loss(d, smoothing=0.3):
 
 
 def mse_loss(d):
-    return (d["pred_images"] - d["target_images"]).square().mean()
+    return share_mean((d["pred_images"] - d["target_images"]).square())
 
 
 _FUNCTIONAL = {

@@ -30,3 +30,6 @@ class Registry:
                 f"Available: {sorted(self._map)}"
             )
         return self._map[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._map

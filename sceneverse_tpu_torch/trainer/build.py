@@ -29,8 +29,20 @@ As in the JAX package:
     buffer of them in one copy (``DefaultTrainer``: every
     ``solver.log_every`` steps).
 
-Not ported (dispatch mechanisms of the JAX package with identical math, or
-later work): packed host transfer, K steps per dispatch, fused eval, DDP.
+Data parallelism (``parallel/mesh.py``; ``run_torch.py`` under torchrun):
+one trainer per process, on ``cuda:LOCAL_RANK`` unless ``device`` says
+otherwise. The global batch is ``dataloader.batchsize``, each rank loads
+its rows (``data/build.py``); rank 0's parameters and buffers are
+broadcast at start; each rank's losses are its shares of the global-batch
+losses and ``GPSOptimizer`` sums the gradients once per optimizer step,
+before the clip; the logged losses and train metrics are summed over the
+ranks inside the buffer ``flush_train_logs`` fetches, so a step adds no
+host sync. Rank 0 writes the log, the checkpoints and ``eval.save``; the
+ranks meet at a barrier after each checkpoint write (rank 0 then writes
+synchronously), and every rank resumes from the same file.
+
+Not ported (dispatch mechanisms of the JAX package with identical math):
+packed host transfer, K steps per dispatch, fused eval.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from sceneverse_tpu_torch.model import build_model
 from sceneverse_tpu_torch.modules.utils import set_generators
 from sceneverse_tpu_torch.optim.build import GPSOptimizer
 from sceneverse_tpu_torch.optim.loss.loss import Loss
+from sceneverse_tpu_torch.parallel import mesh
 from sceneverse_tpu_torch.registry import Registry
 from sceneverse_tpu_torch.utils.logger import MetricsLogger
 from sceneverse_tpu_torch.utils.profiling import (install_nan_checks,
@@ -105,7 +118,10 @@ def _scalar(v, device) -> torch.Tensor:
 class BaseTrainer:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
-        self.device = torch.device(device or cfg.get("device") or "cuda")
+        mesh.check_cfg(cfg)
+        self.device = torch.device(
+            device or cfg.get("device")
+            or (f"cuda:{mesh.local_rank()}" if mesh.world() > 1 else "cuda"))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "the trainer runs on CUDA unless asked for the CPU "
@@ -129,7 +145,7 @@ class BaseTrainer:
         self.model = build_model(
             cfg, generator=torch.Generator().manual_seed(self.seed)
         ).to(self.device)
-        set_generators(self.model, self.seed, self.device)
+        set_generators(self.model, self.seed, self.device, mesh.rank())
         if cfg.select("debug.nans", False):
             install_nan_checks(self.model)
         self.loss = Loss(cfg).to(self.device)
@@ -147,6 +163,7 @@ class BaseTrainer:
         if cfg.get("pretrain_ckpt_path"):
             self.pretrain_ckpt_path = Path(cfg.pretrain_ckpt_path)
             self.load_pretrain()
+        mesh.broadcast_state(self.model)
         exp_dir = cfg.get("exp_dir") or "."
         self.ckpt_path = (Path(cfg.ckpt_path) if cfg.get("ckpt_path")
                           else Path(exp_dir) / "ckpt")
@@ -200,15 +217,36 @@ class BaseTrainer:
         entries in ONE device-to-host copy and write each as its own log
         row and ``history["train"]`` row (JAX ``trainer/build.py:572-610``).
         A row's ``step_s`` is the host time from its step's start to the
-        next step's start, the last one's to the end of this copy."""
+        next step's start, the last one's to the end of this copy.
+
+        Over a data-parallel world a value is this rank's share of a loss
+        or a metric's ``(value, count)`` pair; the buffer is summed over
+        the ranks before the copy and a pair's ratio taken on the host."""
         if not pending:
             return
         keys = list(dict.fromkeys(k for _, vals, _ in pending for k in vals))
         nan = float("nan")
-        mat = torch.stack([
-            torch.stack([_scalar(vals.get(k, nan), self.device) for k in keys])
-            for _, vals, _ in pending])
-        host = mat.cpu().numpy()
+
+        def cell(v, part):  # a pair's value or count; a share, counted 1
+            if isinstance(v, tuple):
+                return v[part]
+            return v if part == 0 else 1.0
+
+        def column(part):
+            return torch.stack([torch.stack([
+                _scalar(cell(vals.get(k, nan), part), self.device)
+                for k in keys]) for _, vals, _ in pending])
+
+        if mesh.world() == 1:
+            host = column(0).cpu().numpy()
+        else:
+            both = torch.stack([column(0), column(1)])
+            mesh.all_reduce_flat([both])
+            value, count = both.cpu().numpy()
+            pair = np.array([any(isinstance(vals.get(k), tuple)
+                                 for _, vals, _ in pending) for k in keys])
+            host = np.where(pair, value / np.maximum(count, np.float32(1)),
+                            value)
         t_end = time.perf_counter()
         starts = [t for _, _, t in pending] + [t_end]
         for i, ((step, _, _), vals) in enumerate(zip(pending, host)):
@@ -236,8 +274,11 @@ class BaseTrainer:
 
     def save(self, name: str):
         """An asynchronous save to ``ckpt_path / name``
-        (``ckpt/checkpoint.py``)."""
-        save_checkpoint(self.ckpt_path / name, self._ckpt_state())
+        (``ckpt/checkpoint.py``); over a data-parallel world rank 0 writes
+        it before the ranks meet at a barrier."""
+        save_checkpoint(self.ckpt_path / name, self._ckpt_state(),
+                        block=mesh.world() > 1)
+        mesh.barrier()
 
     def resume(self):
         """JAX ``trainer/build.py:642-672``: ``latest.pth``, else
@@ -259,7 +300,7 @@ class BaseTrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.exp_tracker.load_state_dict(state["tracker"])
         self.global_step = int(state["global_step"])
-        set_generators(self.model, self.seed, self.device)
+        set_generators(self.model, self.seed, self.device, mesh.rank())
         gen = getattr(self.data_loaders.get("train"), "generator", None)
         if gen is not None:  # the materialized loader seeds each epoch
             gen.manual_seed(self.seed)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import time
 
 from sceneverse_tpu_torch.ckpt.checkpoint import wait_for_checkpoints
+from sceneverse_tpu_torch.parallel import mesh
 from sceneverse_tpu_torch.trainer.build import (TRAINER_REGISTRY, BaseTrainer,
                                                 to_device)
 from sceneverse_tpu_torch.utils.profiling import trace
@@ -58,7 +59,10 @@ class DefaultTrainer(BaseTrainer):
                 batch = self._annotate_batch(to_device(batch, self.device),
                                              epoch * n + i)
                 out, losses = self.train_forward_backward(batch)
-                metrics = evaluator.batch_metrics({**batch, **out})
+                # over a data-parallel world the (value, count) pairs, which
+                # flush_train_logs sums over the ranks
+                metrics = evaluator.batch_metrics(
+                    {**batch, **out}, include_count=mesh.world() > 1)
                 self.global_step += 1
                 pending.append((self.global_step, {**losses, **metrics}, t0))
                 if len(pending) >= log_every:

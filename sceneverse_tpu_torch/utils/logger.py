@@ -1,6 +1,7 @@
 """Metrics logging: one JSON line per ``log`` call in
 ``<exp_dir>/metrics.jsonl``, and wandb as well when it is importable and
-``logger.name`` is ``wandb``.
+``logger.name`` is ``wandb``. Over a data-parallel world only rank 0
+writes.
 
 The port's own copy of ``sceneverse_tpu/utils/logger.py::MetricsLogger``.
 """
@@ -12,10 +13,13 @@ import os
 import time
 from pathlib import Path
 
+from sceneverse_tpu_torch.parallel import mesh
+
 
 class MetricsLogger:
     def __init__(self, cfg, exp_name: str = ""):
-        self.enabled = not bool(cfg.select("debug.hard_debug", False))
+        self.enabled = (not bool(cfg.select("debug.hard_debug", False))
+                        and mesh.rank() == 0)
         exp_dir = cfg.get("exp_dir") or "."
         self.path = Path(exp_dir) / "metrics.jsonl"
         self._fh = None
