@@ -2,9 +2,10 @@
 batch schema of the real pipeline, for runs without the SceneVerse data
 release.
 
-The port's own copy of ``SyntheticReferDataset`` from
-``sceneverse_tpu/data/datasets/synthetic.py``: the same seed gives
-byte-identical items (``tests/test_torch_standalone.py``).
+The port's own copies of ``SyntheticObjDataset`` and
+``SyntheticReferDataset`` from ``sceneverse_tpu/data/datasets/synthetic.py``:
+the same seed gives byte-identical items (``tests/test_torch_standalone.py``,
+``tests/test_torch_objcls.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,39 @@ from __future__ import annotations
 import numpy as np
 
 from sceneverse_tpu_torch.data.build import DATASET_REGISTRY
+
+
+@DATASET_REGISTRY.register()
+class SyntheticObjDataset:
+    """Object-classification samples (the ObjCls schema obj_fts /
+    obj_labels / obj_masks, reference base.py:263-322); pad objects are
+    labelled -100."""
+
+    def __init__(self, cfg, split="train"):
+        args = cfg.data.args
+        self.length = int(cfg.data.get("synthetic_size", 64))
+        self.num_obj = int(args.get("max_obj_len", 8))
+        self.num_points = int(args.get("num_points", 128))
+        self.num_classes = int(cfg.model.get("num_classes", 607))
+        self.seed = 1234 if split == "train" else 4321
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(self.seed + idx)
+        n_valid = rng.randint(1, self.num_obj + 1)
+        obj_fts = rng.randn(self.num_obj, self.num_points, 6).astype(np.float32)
+        labels = rng.randint(0, self.num_classes, self.num_obj).astype(np.int64)
+        labels[n_valid:] = -100
+        masks = np.zeros(self.num_obj, bool)
+        masks[:n_valid] = True
+        return {
+            "obj_fts": obj_fts,
+            "obj_labels": labels,
+            "obj_masks": masks,
+            "data_idx": idx,
+        }
 
 
 @DATASET_REGISTRY.register()

@@ -78,11 +78,8 @@ class BaseEvaluator:
 
 def get_eval(name, cfg, **kwargs):
     """One evaluator, or a list for a list of names (JAX
-    ``evaluator/build.py:119-124``)."""
-    from sceneverse_tpu_torch.evaluator import (  # noqa: F401 (registry)
-        pretrain_eval, referit3d_eval, scanqa_eval, scanrefer_eval,
-        sqa3d_eval)
-
+    ``evaluator/build.py:119-124``; the package's ``__init__`` registers
+    every evaluator)."""
     if isinstance(name, str):
         return EVALUATOR_REGISTRY.get(name)(cfg, **kwargs)
     return [EVALUATOR_REGISTRY.get(n)(cfg, **kwargs) for n in name]

@@ -39,6 +39,20 @@ class BertLMPredictionHead(nn.Module):
 
 
 @HEADS_REGISTRY.register()
+class PretrainHeadV1(nn.Module):
+    """The masked-LM head alone over the BERT vocab (reference :36-43).
+    Its signature is the JAX package's: the text embeddings, and keywords
+    only."""
+
+    def __init__(self, cfg=None, hidden_size=768, vocab_size=30522):
+        super().__init__()
+        self.lm_pred_head = BertLMPredictionHead(hidden_size, vocab_size)
+
+    def forward(self, txt_embeds, **kwargs):
+        return self.lm_pred_head(txt_embeds)
+
+
+@HEADS_REGISTRY.register()
 class OVPretrainHead(nn.Module):
     """LM head over the BERT vocab + 607-way object head (reference :46-56)."""
 

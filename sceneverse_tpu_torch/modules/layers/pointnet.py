@@ -348,9 +348,20 @@ class PointNetPP(nn.Module):
             sa.fused_frozen = True
 
     def forward(self, features):
-        features = features.float()
+        features = _at_least_f32(features)
         xyz = features[..., :3].contiguous()
         feats = features[..., 3:] if features.shape[-1] > 3 else None
         for sa in self.encoder:
             xyz, feats = sa(xyz, feats)
         return self.fc(feats.reshape(feats.shape[0], -1))
+
+
+@torch.no_grad()
+def init_pointnet_weights(pnet: nn.Module, generator: torch.Generator) -> None:
+    """Kaiming-normal convs and ``fc``, zero biases, in module order."""
+    for m in pnet.modules():
+        if isinstance(m, nn.Linear):
+            std = (2.0 / m.weight.shape[1]) ** 0.5
+            m.weight.normal_(0.0, std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()

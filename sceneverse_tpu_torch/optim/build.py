@@ -1,15 +1,23 @@
 """Optimizer (port of sceneverse_tpu/optim/build.py).
 
-torch AdamW over per-tower parameter groups (longest-prefix match against
-``model.get_opt_params()``), each split into decay (wd 0.01) and no-decay
-(biases and norm scales) halves; frozen prefixes and parameters outside
-every group are not optimised. Matches the JAX package's optax chain:
+torch AdamW, Adam or SGD (``solver.optim.name``) over per-tower parameter
+groups (longest-prefix match against ``model.get_opt_params()``). Under
+AdamW a group is split into decay (its ``weight_decay``, default 0.01)
+and no-decay (biases and norm scales) halves unless its spec says
+``no_decay_split: False``, which keeps it whole at its decay; Adam and SGD
+apply no weight decay, whatever the group says (optax's ``adam`` and
+``sgd`` take none). Frozen prefixes and parameters outside every group are
+not optimised. Matches the JAX package's optax chain:
 
   * ``clip_by_global_norm``: g <- g / ||g|| * max_norm when ||g|| >= max_norm;
-  * optax applies weight decay to a parameter whose gradient is zero, torch
-    AdamW skips one whose ``.grad`` is None, so every optimised parameter
-    gets a materialised zero gradient before the step (the unused
-    ``sem_cls_embed_layer`` / ``sem_mask_embeddings`` of the vision tower);
+  * ``betas`` are optax's ``b1`` / ``b2``; ``optax.sgd(momentum=m)`` is
+    torch SGD with ``momentum=m`` and no dampening (both start the trace at
+    the first gradient);
+  * optax moves the moments and applies weight decay for a parameter whose
+    gradient is zero, torch skips one whose ``.grad`` is None, so every
+    optimised parameter gets a materialised zero gradient before the step
+    (the unused ``sem_cls_embed_layer`` / ``sem_mask_embeddings`` of the
+    vision tower);
   * the LR of step ``t`` (0-based) is ``base_lr * schedule(t)``: the warmup
     makes it exactly 0 at step 0;
   * ``accum`` > 1 is ``optax.MultiSteps(chain(clip, adamw), accum)``: each
@@ -44,15 +52,24 @@ def _no_decay(model: nn.Module, name: str) -> bool:
     return isinstance(owner, (nn.LayerNorm, nn.BatchNorm1d))
 
 
+def _torch_optimizer(name: str, param_groups: list, args: dict):
+    """The torch optimizer of optax's ``adamw`` / ``adam`` / ``sgd`` with
+    the config's ``solver.optim.args``."""
+    if name == "SGD":
+        momentum = args.pop("momentum", None)
+        return torch.optim.SGD(param_groups, lr=0.0,
+                               momentum=float(momentum or 0.0), dampening=0.0,
+                               nesterov=bool(args.pop("nesterov", False)),
+                               **args)
+    opt = {"AdamW": torch.optim.AdamW, "Adam": torch.optim.Adam}[name]
+    return opt(param_groups, betas=tuple(args.pop("betas", (0.9, 0.999))),
+               eps=float(args.pop("eps", 1e-8)), **args)
+
+
 class GPSOptimizer:
     def __init__(self, cfg, model: nn.Module, total_steps: int,
                  accum: int = 1):
-        if cfg.solver.optim.name != "AdamW":
-            raise NotImplementedError(
-                f"optimizer {cfg.solver.optim.name!r} is not ported yet")
-        args = dict(cfg.solver.optim.get("args", {}) or {})
-        betas = tuple(args.pop("betas", (0.9, 0.999)))
-        eps = float(args.pop("eps", 1e-8))
+        opt_name = cfg.solver.optim.name
         self.schedule = get_schedule_fn(cfg, total_steps)
         self.grad_norm = cfg.solver.get("grad_norm")
         groups = model.get_opt_params()
@@ -69,16 +86,20 @@ class GPSOptimizer:
                     best, best_len = i, len(pref)
             if best is None:
                 continue
-            buckets.setdefault((best, _no_decay(model, name)), []).append(p)
+            nd = (groups[best].get("no_decay_split", True)
+                  and _no_decay(model, name))
+            buckets.setdefault((best, nd), []).append(p)
         self.group_info = [(f"g{i}", float(g["lr"])) for i, g in enumerate(groups)]
         param_groups = []
         for (i, nd), ps in sorted(buckets.items()):
-            wd = 0.0 if nd else float(groups[i].get("weight_decay", 0.01))
+            wd = (float(groups[i].get("weight_decay", 0.01))
+                  if opt_name == "AdamW" and not nd else 0.0)
             param_groups.append({"params": ps, "lr": 0.0, "weight_decay": wd,
                                  "base_lr": float(groups[i]["lr"])})
         self.params = [p for g in param_groups for p in g["params"]]
-        self.opt = torch.optim.AdamW(param_groups, betas=betas, eps=eps,
-                                     **args)
+        self.opt = _torch_optimizer(
+            opt_name, param_groups,
+            dict(cfg.solver.optim.get("args", {}) or {}))
         self.step_count = 0
         self.accum = int(accum)
         self.mini_step = 0

@@ -309,7 +309,6 @@ class BaseTrainer:
 
 
 def build_trainer(cfg, device=None):
-    from sceneverse_tpu_torch.trainer import (  # noqa: F401  (registry)
-        debug_trainer, default_trainer, openvocab_trainer)
-
+    """The trainer ``cfg.trainer`` names (the package's ``__init__``
+    registers every trainer)."""
     return TRAINER_REGISTRY.get(cfg.trainer)(cfg, device=device)

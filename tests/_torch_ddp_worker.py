@@ -11,6 +11,7 @@ objects x 64 points, 16 + 16 tokens, global batch 4 (2 a rank), AdamW eps
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import sys
@@ -52,6 +53,30 @@ ROUTES = {
     "unfrozen_folded": (["model.vision.args.freeze=False"],
                         {"SCENEVERSE_BN_FOLD": "on"}),
     "unfrozen_fused": (["model.vision.args.freeze=False"], FUSED_ENV),
+    "objcls": ([], {}),
+}
+# the ObjCls pretraining route (tests/test_trainer_e2e.py's config at
+# clip width): the PointNet++ alone, train-mode BatchNorm, the model whose
+# SyncBatchNorm the cross-rank moments stand for
+OBJCLS = {
+    "rng_seed": 42, "num_gpu": 1, "trainer": "ObjPretrainTrainer",
+    "task": "ObjPretrain",
+    "data": {"train": ["SyntheticObjDataset"], "val": ["SyntheticObjDataset"],
+             "test": ["SyntheticObjDataset"], "synthetic_size": BATCH,
+             "args": {"max_obj_len": 4, "num_points": 64}},
+    "dataloader": {"batchsize": BATCH, "num_workers": 0},
+    "solver": {"gradient_accumulation_steps": 1, "epochs_per_eval": 1,
+               "lr": 1e-3, "grad_norm": 5.0, "epochs": 1,
+               "optim": {"name": "AdamW", "args": {"betas": [0.9, 0.98],
+                                                   "eps": 1e-6}},
+               "sched": {"name": "warmup_cosine",
+                         "args": {"warmup_steps": 0}}},
+    "eval": {"name": "PretrainObjEval", "save": False},
+    "model": {"name": "ObjCls", "language_type": "clip", "open_vocab": False,
+              "num_classes": 32, "cls_hidden": 64,
+              "loss_list": ["obj_cls_loss"],
+              "vis_loss_list": ["obj_cls_loss"]},
+    "device": "cpu",
 }
 N_EVAL = 7  # items of the evaluator case: shards of 4 and 3 over 2 ranks
 
@@ -94,8 +119,15 @@ def route_step(name, exp_dir, weights=None):
     from sceneverse_tpu_torch.trainer.build import build_trainer
 
     over, env = ROUTES[name]
+    over = list(over) + [f"exp_dir={exp_dir}"]
     with gates(env):
-        t = build_trainer(_cfg(STEP + over + [f"exp_dir={exp_dir}"]))
+        if name == "objcls":
+            from sceneverse_tpu_torch.config import Config, apply_overrides
+
+            cfg = apply_overrides(Config(copy.deepcopy(OBJCLS)), over)
+        else:
+            cfg = _cfg(STEP + over)
+        t = build_trainer(cfg)
         if weights is not None:
             _, missing, unexpected = apply_state_dict(
                 t.model, torch.load(weights, weights_only=True))
@@ -317,7 +349,8 @@ def run(r, n_world, init_file, spec):
     res["materialized"] = materialized_batches(spec["tree"],
                                                out / "stores")
     res["entry"] = entry_runs(out / "entry")
-    for name in ("unfrozen", "unfrozen_folded", "unfrozen_fused", "frozen"):
+    for name in ("unfrozen", "unfrozen_folded", "unfrozen_fused", "objcls",
+                 "frozen"):
         # the frozen route takes the JAX model's weights, which the test
         # process writes while the cases above run
         weights = Path(spec["weights"]) if name == "frozen" else None

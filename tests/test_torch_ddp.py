@@ -38,6 +38,19 @@ points, global batch 4, dropout off, ``SCENEVERSE_FUSED_MHA=off``).
      no bf16 rounding precedes the moments: the statistics of SA1's three
      layers and SA2's first within REL (measured at most 2.4e-6; per-rank
      moments would be off by the sampling error of half the rows).
+     The ObjCls route (``OBJCLS`` in the worker: ``ObjPretrainTrainer``
+     on ``SyntheticObjDataset``, the PointNet++ at clip width and an MLP
+     head, the reference's one SyncBatchNorm model) runs the literal
+     route's arithmetic, and its losses and statistics are held within
+     REL. Its gradients are held to OBJCLS_TOL: one center of SA2 (a ball
+     that holds only its center, so its 32 sample rows are copies) has a
+     layer-0 conv output within f32 rounding of its channel's batch mean;
+     with BatchNorm's shift at 0 it normalises to exactly 0 in one world
+     and a rounding above it in the other, the ReLU of those 32 rows lands
+     the other way, and every gradient below it moves (1.3e-3 relative L2
+     over all gradients, held at REL). Parameters after one AdamW step:
+     Adam normalises such an element to a different fraction of its step,
+     so within Adam's bound of 2 lr (1.83 on one element, held at 0.25).
   2. The frozen route equals JAX's dp=2 mesh step (``tests/test_multichip.py``'s
      pattern) at test_multichip's tolerances: loss within 1e-4, parameters
      within atol 5e-5, rtol 1e-4. JAX's frozen PointNet++ is replaced by
@@ -84,6 +97,16 @@ EXACT_STATS = ("point_encoder.point_feature_extractor.encoder.0.",
                "point_encoder.point_feature_extractor.encoder.1.mlps.0."
                "layer0.")
 ROUTES = list(W.ROUTES)
+# per route: the logged losses and the train metrics held against the world
+# of 1, and the least number of optimised tensors that must have moved
+GPS_ROW = (("total_loss", "lm_cls_loss", "TextObjWithinBatch",
+            "TextSceneBetweenBatch"), ("lang_cls_acc_mask", "obj_cls_raw_acc"),
+           50)
+ROW = {route: GPS_ROW for route in ROUTES}
+ROW["objcls"] = (("total_loss", "obj_cls_loss"), ("accuracy",), 30)
+# the ObjCls route's gradients (relative L2) and parameters (in units of
+# lr), against a ReLU decision that lands the other way (module docstring)
+OBJCLS_TOL = {"grad_l2": 1e-2, "param_lr": 2.0}
 TIMEOUT_S = 180
 
 
@@ -234,11 +257,10 @@ def test_route_losses_match_one_rank(ddp, route):
     for r in ranks:
         got = r["routes"][route]["row"]
         assert set(got) == set(want)
-        for k in ("total_loss", "lm_cls_loss", "TextObjWithinBatch",
-                  "TextSceneBetweenBatch"):
+        for k in ROW[route][0]:
             assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), k
     # the train metrics: the global batch's (value, count) pairs summed
-    for k in ("lang_cls_acc_mask", "obj_cls_raw_acc"):
+    for k in ROW[route][1]:
         assert ranks[0]["routes"][route]["row"][k] == pytest.approx(
             want[k], abs=1e-6), k
 
@@ -250,21 +272,22 @@ def test_route_summed_gradients_match_one_rank(ddp, route):
     gmax = max(g.abs().max().item() for g in want.values())
     assert gmax > 0
     fused = route == "unfrozen_fused"
+    chaotic = fused or route == "objcls"
     for r in ranks:
         got = r["routes"][route]["grad"]
         assert set(got) == set(want)
         diff = torch.cat([(got[n] - want[n]).reshape(-1) for n in want])
         norm = torch.cat([want[n].reshape(-1) for n in want]).norm()
         assert (diff.norm() / norm).item() <= (
-            FUSED_TOL["grad_l2"] if fused else REL)
-        for n in want if not fused else ():
+            FUSED_TOL["grad_l2"] if fused else
+            OBJCLS_TOL["grad_l2"] if chaotic else REL)
+        for n in want if not chaotic else ():
             # REL per tensor; the floor covers the tensors whose exact
             # gradient is zero (the key projections' biases)
             assert (got[n] - want[n]).abs().max().item() <= \
                 REL * want[n].abs().max().item() + 1e-7 * gmax, n
     if route != "frozen":  # the PointNet++ trains
-        assert any(n.startswith("point_encoder.point_feature_extractor")
-                   for n in want)
+        assert any("point_feature_extractor." in n for n in want)
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -274,6 +297,7 @@ def test_route_params_after_adamw_match_one_rank(ddp, route):
     lr = one["routes"][route]["lr"]
     a, b = (r["routes"][route]["param"] for r in ranks)
     fused = route == "unfrozen_fused"
+    chaotic = fused or route == "objcls"
     moved = 0
     for n in want:
         assert torch.equal(a[n], b[n]), n  # the ranks agree bit for bit
@@ -282,12 +306,13 @@ def test_route_params_after_adamw_match_one_rank(ddp, route):
             continue
         units = ((a[n] - want[n]).abs()
                  - REL * want[n].abs().max()) / lr[n]
-        assert units.max().item() <= (FUSED_TOL["param_lr"] if fused
-                                      else 0.25), (n, units.max().item())
-        if not fused:
+        assert units.max().item() <= (
+            FUSED_TOL["param_lr"] if fused else OBJCLS_TOL["param_lr"]
+            if chaotic else 0.25), (n, units.max().item())
+        if not chaotic:
             assert (units > 0.01).float().mean().item() <= 1e-3, n
         moved += 1
-    assert moved > 50
+    assert moved > ROW[route][2]
 
 
 @pytest.mark.parametrize("route", ROUTES)

@@ -25,7 +25,8 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "sceneverse_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(REPO, f) for f in
-       ("run_torch.py", "chip_smoke.py", "profile_torch.py")])
+       ("run_torch.py", "chip_smoke.py", "profile_torch.py",
+        "sa_train_spread.py")])
 CONFIGS = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "configs", "final", "**", "*.yaml"),
@@ -64,8 +65,12 @@ def test_the_import_check_sees_every_port_file():
         "modules/heads/qa_head", "evaluator/common",
         "evaluator/referit3d_eval", "evaluator/scanqa_eval",
         "evaluator/sqa3d_eval")]
+    objcls = [f"sceneverse_tpu_torch/{m}.py" for m in (
+        "model/build", "model/objcls", "modules/vision/obj_cls_encoder",
+        "evaluator/objcls_eval", "trainer/objpretrain_trainer")]
     assert set(data) <= set(PORT_FILES)
     assert set(finetune) <= set(PORT_FILES)
+    assert set(objcls) <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", CONFIGS)
