@@ -30,8 +30,10 @@ Phases (any failure exits non-zero; nothing is caught):
      with its ``device_ms``, both backward launches together; and both at
      L = 300 with whole trailing key tiles of pad and an all-pad row, whose
      skipped tiles must change no bit) and
-     ``mha_fwd`` / ``mha_bwd`` (the four GPS attention shapes; their f32
-     bound counts the products at the 3xTF32 tensor-core rate).
+     ``mha_fwd`` / ``mha_bwd`` (the four GPS attention shapes and the
+     grounding variants' two cross-attention shapes, 80 queries over 50
+     keys and 50 over 80; their f32 bound counts the products at the
+     3xTF32 tensor-core rate).
   4. slices: ``run_torch.main`` on ``synthetic_pretrain`` at full GPS width
      (768-d, 80 objects x 1024 points, 50 + 300 tokens, batch 32): train
      steps, val and test eval, with the frozen PointNet++, unfrozen
@@ -61,8 +63,8 @@ Phases (any failure exits non-zero; nothing is caught):
      launches, a lower peak under "full"); gradient accumulation over 4
      micro-steps at k = 2 (parameters still between updates, two updates,
      the LR schedule over total // 2, the first update equal to one taken
-     by hand); VERDICT #2's 240-step ``OpenVocabTrainer`` run cut after
-     epoch 30 and resumed by a fresh trainer from ``ckpt_30.pth`` (the
+     by hand); VERDICT #2's ``OpenVocabTrainer`` run, 80 steps, cut after
+     epoch 10 and resumed by a fresh trainer from ``ckpt_10.pth`` (the
      resumed state bit-equal to the saved one, a falling loss, a rising
      train accuracy; launch counts set to 0 before and read after); and
      the ``profile.enabled``, ``debug.nans`` and ``eval.save`` switches.
@@ -130,7 +132,29 @@ Phases (any failure exits non-zero; nothing is caught):
      ``mha_fwd`` per attention layer, its outputs equal to ``OpenVocab``'s
      on the 32 rows with each scene's objects repeated, and a train-mode
      backward of ``lm_cls_loss`` that launches ``mha_bwd``.
- 10. data parallel (``phase_ddp``): the card is one device and NCCL
+ 10. variants (``phase_variants``): ``OpenVocab`` at the SLICE_ARGS width
+     through ``build_trainer`` with ``model.grounding`` set to
+     ``EntitySpatialCrossEncoder`` and to ``UnifiedSpatialCrossEncoderV1``
+     (768 wide, 12 heads, 4 layers, 'center'), 3 train steps (forward,
+     losses, backward, AdamW) and 2 eval batches each, and with
+     ``model.language`` set to ``CLIPLanguageEncoder`` at
+     clip-vit-large-patch14's text width (12 layers, random weights, frozen;
+     no scene caption, all_noscene's losses), 2 steps and 1 batch: losses
+     finite and moving, og3d logits finite, ``mha_fwd`` / ``mha_bwd`` /
+     ``fps`` / ``sa_group_mlp_pool`` launched exactly as often as the
+     config's fused attention layers and SA levels need
+     (``variant_attn_per_forward``) and nothing else, the train steps'
+     peak memory and one more step's device time; the entity encoder once
+     more with 'vertical_bottom' pairwise locations. Then the PointNet++
+     variant library: VoteNet's backbone (4 ``PointnetSAModuleVotes``, 2
+     ``PointnetFPModule``, 8 x 20,000 points), PointNet++'s MSG
+     classification SA1 (``PointnetSAModuleMSG``, 16 x 1024 points), the
+     same as ``PointnetSAModuleMSGVotes``, and ``PointnetLFPModuleMSG``
+     back onto the 1024 points, each on the card against the same module
+     on the CPU: FPS, ball-query and 3-NN indices equal, f32 values within
+     TOL["f32"], f64 values and input gradients within PNET_TOL, with each
+     module's f32 forward + backward time on the card.
+ 11. data parallel (``phase_ddp``): the card is one device and NCCL
      refuses two ranks on one device, so ``run_torch.main`` runs the frozen
      slice (3 steps, val and test over 97 items), the unfrozen_fused
      slice (2 steps) and the ObjCls run (2 steps, literal route) in child
@@ -145,7 +169,7 @@ Phases (any failure exits non-zero; nothing is caught):
      three fused levels need, ObjCls's kernels exactly as often a step and
      an eval batch as its route needs), launches and host-clock step times
      per rank.
- 11. prints the kernel table as one JSON line, the card line, and last
+ 12. prints the kernel table as one JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
@@ -1104,7 +1128,9 @@ def check_mha(table, label, dname, q, k, v, pad, sw, locs, do, H, scale,
 
 def phase_mha(table):
     """``mha_fwd`` and ``mha_bwd`` against their twins at the four GPS
-    attention shapes (B=32, H=12, dh=64), f32 and bf16 (``check_mha``)."""
+    attention shapes (B=32, H=12, dh=64) and the grounding variants' two
+    cross-attention shapes (queries and keys of different lengths: 80
+    objects over 50 tokens, 50 over 80), f32 and bf16 (``check_mha``)."""
     import torch
 
     from sceneverse_tpu_torch.ops import mha
@@ -1113,22 +1139,25 @@ def phase_mha(table):
     B, H, dh = 32, 12, 64
     D = H * dh
     fmin = torch.finfo(torch.float32).min
-    cases = [  # (label, L, pad kind, gate, dropout)
-        ("bert L=50 additive drop0.1", 50, "additive", False, 0.1),
-        ("caption L=300 additive drop0.1", 300, "additive", False, 0.1),
-        ("spatial-cond L=80 keypad", 80, "keypad", True, 0.0),
-        ("unified L=130 keypad drop0.1", 130, "keypad", False, 0.1),
+    cases = [  # (label, L queries, T keys, pad kind, gate, dropout)
+        ("bert L=50 additive drop0.1", 50, 50, "additive", False, 0.1),
+        ("caption L=300 additive drop0.1", 300, 300, "additive", False, 0.1),
+        ("spatial-cond L=80 keypad", 80, 80, "keypad", True, 0.0),
+        ("unified L=130 keypad drop0.1", 130, 130, "keypad", False, 0.1),
+        ("cross L=80 T=50 keypad drop0.1", 80, 50, "keypad", False, 0.1),
+        ("cross L=50 T=80 keypad drop0.1", 50, 80, "keypad", False, 0.1),
     ]
     g = torch.Generator(device="cpu").manual_seed(1)
-    for label, L, padkind, gate, rate in cases:
-        valid = torch.randint(L // 3, L + 1, (B,), generator=g)
-        padmask = torch.arange(L)[None] >= valid[:, None]
+    for label, L, T, padkind, gate, rate in cases:
+        valid = torch.randint(T // 3, T + 1, (B,), generator=g)
+        padmask = torch.arange(T)[None] >= valid[:, None]
         pad = torch.where(padmask, fmin if padkind == "additive" else mha.NEG,
                           0.0).float().to(dev)
         sw = (torch.randn((B, H, L, 6), generator=g).to(dev) if gate else None)
-        locs = (torch.randn((B, L, L, 5), generator=g).to(dev) if gate
+        locs = (torch.randn((B, L, T, 5), generator=g).to(dev) if gate
                 else None)
-        base = [torch.randn((B, L, D), generator=g).to(dev) for _ in range(4)]
+        base = [torch.randn((B, n, D), generator=g).to(dev)
+                for n in (L, T, T, L)]  # q, k, v, do
         for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v, do = (t.to(dtype) for t in base)
             check_mha(table, label, dname, q, k, v, pad, sw, locs, do, H,
@@ -1349,12 +1378,14 @@ def _run_entry(exact):
 
 
 # ------------------------------------------------------------ trainer phase
-# the multi-step run of the trainer phase: 4 steps an epoch, 60 epochs (240
-# steps), val every 10 epochs, ckpt_N every 30; trainer A is cut after epoch
-# TRAINER_CUT, as a preemption would cut it, and a fresh trainer B resumes
-TRAINER_RUN = ["data.synthetic_size=128", "solver.epochs=60",
-               "solver.epochs_per_eval=10", "solver.epochs_per_save=30"]
-TRAINER_CUT = 30
+# the multi-step run of the trainer phase: 4 steps an epoch, 20 epochs (80
+# steps), val every 5 epochs, ckpt_N every 10; trainer A is cut after epoch
+# TRAINER_CUT, as a preemption would cut it, and a fresh trainer B resumes;
+# 80 steps keep the whole smoke within its time budget, and the loss and
+# train-accuracy checks compare the means of their first and last 20
+TRAINER_RUN = ["data.synthetic_size=128", "solver.epochs=20",
+               "solver.epochs_per_eval=5", "solver.epochs_per_save=10"]
+TRAINER_CUT = 10
 # remat against no remat, per gradient tensor, on max|diff| / max|no remat|;
 # the trainer's accumulated (clipped) gradient at its first update against
 # the hand-taken mean's, per tensor, on max|diff| / max|hand|
@@ -1633,8 +1664,8 @@ def _means(rows, key, n=20):
 
 
 def trainer_run():
-    """VERDICT #2: ``OpenVocabTrainer`` for 240 steps with a resume at step
-    120. Trainer A runs epochs 1-30 and writes ``ckpt_30.pth``; a fresh
+    """VERDICT #2: ``OpenVocabTrainer`` for 80 steps with a resume at step
+    40. Trainer A runs epochs 1-10 and writes ``ckpt_10.pth``; a fresh
     trainer B with ``resume=True`` must then hold A's parameters, AdamW
     moments, optimizer step and tracker bit for bit, and runs epochs 31-60.
     The loss falls and the train-side PretrainEval target metric rises
@@ -3387,9 +3418,410 @@ def phase_ddp():
     return out
 
 
+# ------------------------------------------------------------ model variants
+# OpenVocab at SLICE_ARGS width with model.grounding replaced by each
+# grounding variant (their decoder layers run the fused attention as
+# cross-attention: 80 object queries over 50 text keys, and in V1 also 50
+# over 80), and with the CLIP text tower as model.language (its 77
+# positions take the 50-token utterance; no scene caption, all_noscene's
+# losses); then the PointNet++ variant library at VoteNet's and PointNet++
+# MSG's sizes. Each run: (train steps, eval batches).
+VARIANT_GROUNDING_ARGS = {"hidden_size": 768, "num_attention_heads": 12,
+                          "spatial_dim": 5, "num_layers": 4, "dim_loc": 6,
+                          "pairwise_rel_type": "center"}
+VARIANT_GROUNDINGS = {"variant_entity": "EntitySpatialCrossEncoder",
+                      "variant_v1": "UnifiedSpatialCrossEncoderV1"}
+VARIANT_STEPS = {"variant_entity": (3, 2), "variant_v1": (3, 2),
+                 "variant_clip": (2, 1)}
+# fused attention layers a grounding layer holds: V2 its self-attention;
+# the spatial decoder its 'cond' self-attention and its cross-attention; V1
+# that and the text decoder's self- and cross-attention
+GROUNDING_ATTN = {"UnifiedSpatialCrossEncoderV2": 1,
+                  "EntitySpatialCrossEncoder": 2,
+                  "UnifiedSpatialCrossEncoderV1": 4}
+# openai/clip-vit-large-patch14's text tower (CLIPTextConfig's defaults:
+# 12 layers, 768 wide, FFN 3072, 49408 words, 77 positions), random weights
+CLIP_LANGUAGE = {"name": "CLIPLanguageEncoder", "lr": 1e-5,
+                 "args": {"weights": "openai/clip-vit-large-patch14",
+                          "output_dim": 768, "freeze_backbone": True,
+                          "num_hidden_layers": 12}}
+CLIP_LOSSES = ["lm_cls_loss", "TextObjWithinBatch"]  # all_noscene.yaml
+# VoteNet's backbone (Qi et al., ICCV 2019, models/backbone_module.py): 20k
+# points with a height feature, four SA levels (npoint, radius, nsample,
+# mlp, normalize_xyz) and two FP levels; PointNet++'s MSG classification
+# SA1 on 1024-point clouds; the LFP module propagates its output back
+VOTENET = {"batch": 8, "points": 20000,
+           "sa": [(2048, 0.2, 64, [1, 64, 64, 128], True),
+                  (1024, 0.4, 32, [128, 128, 128, 256], False),
+                  (512, 0.8, 16, [256, 128, 128, 256], False),
+                  (256, 1.2, 16, [256, 128, 128, 256], False)],
+           "fp": [[512, 256, 256], [512, 256, 256]]}
+MSG_CLS = {"batch": 16, "points": 1024, "npoint": 512,
+           "radii": [0.1, 0.2, 0.4], "nsamples": [16, 32, 128],
+           "mlps": [[0, 32, 32, 64], [0, 64, 64, 128], [0, 64, 96, 128]],
+           "lfp_mlps": [[320, 64, 128], [320, 64, 128], [320, 128, 128]],
+           "lfp_post": [128, 128]}
+# the variant modules on the card against the same modules on the CPU, on
+# max|card - cpu| / max|cpu|: float64 on both sides (in f32 a max-pool or a
+# ReLU within rounding of a tie may go the other way, moving one gradient
+# row whole); f32 forward values within TOL["f32"]; indices exactly. The
+# CPU runs the first PNET_CPU_CLOUDS clouds of each batch: its plain ball
+# query over VoteNet's (8, 2048, 20000) pairs alone took about a minute
+PNET_TOL = 1e-4
+PNET_CPU_CLOUDS = 2
+
+
+def variant_cfg(name):
+    """The SLICE_ARGS config with the run's grounding or language tower."""
+    import run_torch
+
+    cfg = run_torch.load_cfg(SLICE_ARGS + [
+        f"exp_dir={os.path.join(REPO, 'build', 'smoke_runs', name)}"])
+    if name == "variant_clip":
+        cfg.model.language = json.loads(json.dumps(CLIP_LANGUAGE))
+        cfg.data.args.use_scene_cap = False
+        cfg.model.loss_list = list(CLIP_LOSSES)
+        cfg.model.vis_loss_list = list(CLIP_LOSSES)
+    else:
+        cfg.model.grounding = {"name": VARIANT_GROUNDINGS[name], "lr": 1e-4,
+                               "args": dict(VARIANT_GROUNDING_ARGS)}
+    return cfg
+
+
+def variant_attn_per_forward(cfg):
+    """``mha_fwd`` launches of one ``OpenVocab`` forward, from the config:
+    the spatial encoder's layers, the BERT utterance tower's, the split
+    caption tower's but for its ``cls_only`` last layer (plain), and the
+    grounding's fused layers (``GROUNDING_ATTN``). CLIP takes no fused
+    attention. Every one of them trains, so a train step launches as many
+    ``mha_bwd``."""
+    from sceneverse_tpu_torch.model.openvocab import cap_cls_only_enabled
+
+    m = cfg.model
+    n = int(m.vision.args.num_layers)
+    if m.language.name == "BERTLanguageEncoder":
+        lang = int(m.language.args.num_hidden_layers)
+        n += lang
+        if cfg.data.args.get("use_scene_cap") and m.get(
+                "split_scene_cap_tower"):
+            n += lang - 1 if cap_cls_only_enabled() else lang
+    return n + GROUNDING_ATTN[m.grounding.name] * int(
+        m.grounding.args.num_layers)
+
+
+def _variant_run(name):
+    """One variant through ``build_trainer``: VARIANT_STEPS train steps
+    (forward, losses, backward, AdamW) and eval batches, their launches
+    exact, the losses finite and moving, the og3d logits finite; the peak
+    memory of the train steps and one more step's device time."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.trainer.build import build_trainer, to_device
+
+    tag = f"[{name}]"
+    cfg = variant_cfg(name)
+    n_train, n_eval = VARIANT_STEPS[name]
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg)
+    dev = trainer.device
+    train = [to_device(b, dev) for b, _ in
+             zip(trainer.data_loaders["train"], range(n_train))]
+    evals = [to_device(b, dev) for b, _ in
+             zip(eval_loaders(trainer, "val")[0], range(n_eval))]
+    per_fwd = variant_attn_per_forward(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses = []
+    for i, b in enumerate(train):
+        _, step = trainer.train_forward_backward(trainer._annotate_batch(b, i))
+        losses.append({k: float(v.detach()) for k, v in step.items()})
+    train_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _build.reset_launches()
+    outs = [trainer.forward(b)["og3d_logits"] for b in evals]
+    eval_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    total = [r["total_loss"] for r in losses]
+    log(f"{tag} {cfg.model.language.name} + {cfg.model.grounding.name}: "
+        f"{n_train} train steps, losses {[round(x, 5) for x in total]} "
+        f"({losses[-1]}); launches {train_launches} ({per_fwd} mha_fwd and "
+        f"mha_bwd a step); {n_eval} eval batches: launches {eval_launches} "
+        f"({per_fwd} mha_fwd a batch); peak memory {peak:.2f} GiB")
+    want_train = {"fps": 2 * n_train, "sa_group_mlp_pool": 2 * n_train,
+                  "mha_fwd": per_fwd * n_train, "mha_bwd": per_fwd * n_train}
+    want_eval = {"fps": 2 * n_eval, "sa_group_mlp_pool": 2 * n_eval,
+                 "mha_fwd": per_fwd * n_eval}
+    if train_launches != want_train or eval_launches != want_eval:
+        raise AssertionError(f"{tag} launches {train_launches} / "
+                             f"{eval_launches}, expected {want_train} / "
+                             f"{want_eval}")
+    if not (all(math.isfinite(x) for r in losses for x in r.values())
+            and len(set(total)) == n_train):
+        raise AssertionError(f"{tag} losses not finite or not moving: {total}")
+    shape = (int(cfg.dataloader.batchsize), int(cfg.data.args.max_obj_len))
+    for o in outs:
+        if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{tag} og3d {tuple(o.shape)} not finite")
+    info = {"train_losses": losses, "train_launches": train_launches,
+            "eval_launches": eval_launches, "mha_per_forward": per_fwd,
+            "peak_mem_gib": peak,
+            "launches": dict(collections.Counter(train_launches)
+                             + collections.Counter(eval_launches))}
+    if name == "variant_entity":  # the geometry port's 'vertical_bottom'
+        enc = trainer.model.unified_encoder
+        enc.pairwise_rel_type = "vertical_bottom"
+        _build.reset_launches()
+        vb = trainer.forward(evals[0])["og3d_logits"]
+        vb_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        enc.pairwise_rel_type = "center"
+        center = trainer.forward(evals[0])["og3d_logits"]
+        diff = (vb - center).abs().max().item()
+        log(f"{tag} vertical_bottom forward: og3d finite "
+            f"{bool(torch.isfinite(vb).all())}, max|vertical_bottom - "
+            f"center| {diff:.4g}, launches {vb_launches}")
+        if not (bool(torch.isfinite(vb).all()) and diff > 0
+                and vb_launches.get("mha_fwd") == per_fwd):
+            raise AssertionError(f"{tag} vertical_bottom forward {diff} "
+                                 f"{vb_launches}")
+        info["vertical_bottom_vs_center"] = diff
+    step_ms, events = kernel_sum_ms(
+        lambda: trainer.train_forward_backward(train[0]))
+    info.update({"step_device_ms": step_ms, "step_device_events": events,
+                 "seconds": time.perf_counter() - t0})
+    log(f"{tag} one train step: {step_ms:.3f} ms of device work ({events} "
+        f"device events, torch.profiler); run {info['seconds']:.1f} s")
+    del trainer, train, evals, outs
+    _free()
+    return info
+
+
+def votenet_backbone():
+    """VoteNet's backbone forward (``VOTENET``) from the port's
+    ``PointnetSAModuleVotes`` and ``PointnetFPModule``: returns the second
+    FP level's features (B, 1024, 256) and the four levels' FPS indices."""
+    from torch import nn
+
+    from sceneverse_tpu_torch.modules.layers.pointnet import (
+        PointnetFPModule, PointnetSAModuleVotes)
+
+    class Backbone(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.sa = nn.ModuleList([
+                PointnetSAModuleVotes(mlp=mlp, npoint=n, radius=r, nsample=s,
+                                      normalize_xyz=norm)
+                for n, r, s, mlp, norm in VOTENET["sa"]])
+            self.fp = nn.ModuleList([PointnetFPModule(mlp=m)
+                                     for m in VOTENET["fp"]])
+
+        def forward(self, pc):
+            xyz, feats = pc[..., :3].contiguous(), pc[..., 3:]
+            levels, inds = [], []
+            for sa in self.sa:
+                xyz, feats, ind = sa(xyz, feats)
+                levels.append((xyz, feats))
+                inds.append(ind)
+            (x2, f2), (x3, f3), (x4, f4) = levels[1:]
+            f = self.fp[0](x3, x4, f3, f4)
+            return self.fp[1](x2, x3, f2, f), inds
+
+    return Backbone()
+
+
+def _pnet_modules(gen):
+    """(name, module, inputs, call) of the four variant cases, built on the
+    CPU from ``gen``: seeded convs (``init_pointnet_weights``) and random
+    eval-mode BatchNorm statistics and affines; ``call(module, *inputs)``
+    returns (the values compared, the indices compared)."""
+    import torch
+
+    from sceneverse_tpu_torch.modules.layers.pointnet import (
+        PointnetLFPModuleMSG, PointnetSAModuleMSG, PointnetSAModuleMSGVotes,
+        init_pointnet_weights)
+
+    def ready(m):
+        init_pointnet_weights(m, gen)
+        with torch.no_grad():
+            for mod in m.modules():
+                if isinstance(mod, torch.nn.BatchNorm1d):
+                    c = mod.num_features
+                    mod.running_mean.copy_(torch.randn(c, generator=gen)
+                                           * 0.1)
+                    mod.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+                    mod.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                    mod.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+        return m.eval()
+
+    B, P = VOTENET["batch"], VOTENET["points"]
+    room = torch.rand((B, P, 3), generator=gen) * torch.tensor([6.0, 6.0,
+                                                                2.5])
+    room[..., :2] -= 3.0
+    pc = torch.cat([room, room[..., 2:]], -1)  # xyz, height above the floor
+    Bc, Pc = MSG_CLS["batch"], MSG_CLS["points"]
+    cloud = torch.randn((Bc, Pc, 3), generator=gen)
+    cloud = cloud / cloud.norm(dim=-1, keepdim=True) * torch.rand(
+        (Bc, Pc, 1), generator=gen) ** (1 / 3)  # in the unit ball
+    kw = {k: MSG_CLS[k] for k in ("npoint", "radii", "nsamples", "mlps")}
+    msg = ready(PointnetSAModuleMSG(**kw))
+    with torch.no_grad():
+        centers, feats1 = msg(cloud, None)
+    lfp = ready(PointnetLFPModuleMSG(
+        mlps=MSG_CLS["lfp_mlps"], radii=MSG_CLS["radii"],
+        nsamples=MSG_CLS["nsamples"], post_mlp=MSG_CLS["lfp_post"]))
+    votenet = ready(votenet_backbone())
+    msg_votes = ready(PointnetSAModuleMSGVotes(**kw))
+    return [
+        ("votenet_backbone", votenet, [pc], lambda m, x: m(x)),
+        ("sa_msg", msg, [cloud], lambda m, x: (m(x, None)[1], [])),
+        ("sa_msg_votes", msg_votes, [cloud],
+         lambda m, x: (lambda o: (o[1], [o[2]]))(m(x, None))),
+        ("lfp_msg", lfp, [cloud, centers, feats1],
+         lambda m, x2, x1, f1: (m(x2, x1, None, f1), [])),
+    ]
+
+
+def _pnet_index_hooks(module, store):
+    """Forward hooks recording each SA / FP call's point sets, from which
+    ``_pnet_indices`` recomputes the ball-query and 3-NN indices."""
+    from sceneverse_tpu_torch.modules.layers import pointnet as pn
+
+    def sa_hook(mod, args, out):
+        if isinstance(mod, pn.PointnetSAModuleVotes):
+            scales = [(mod.radius, mod.nsample)]
+        else:
+            msg = getattr(mod, "msg", mod)
+            scales = list(zip(msg.radii, msg.nsamples))
+        if out[0] is not None:
+            store.append(("ball", args[0].detach(), out[0].detach(), scales))
+
+    def fp_hook(mod, args, out):
+        if args[1] is not None:
+            store.append(("3nn", args[0].detach(), args[1].detach(), None))
+
+    def lfp_hook(mod, args, out):
+        store.append(("ball", args[1].detach(), args[0].detach(),
+                      list(zip(mod.radii, mod.nsamples))))
+
+    hooks = []
+    for m in module.modules():
+        if isinstance(m, (pn.PointnetSAModuleVotes, pn.PointnetSAModuleMSG,
+                          pn.PointnetSAModuleMSGVotes)):
+            hooks.append(m.register_forward_hook(sa_hook))
+        elif isinstance(m, pn.PointnetFPModule):
+            hooks.append(m.register_forward_hook(fp_hook))
+        elif isinstance(m, pn.PointnetLFPModuleMSG):
+            hooks.append(m.register_forward_hook(lfp_hook))
+    return hooks
+
+
+def _pnet_indices(store):
+    """The ball-query and 3-NN indices of every recorded call."""
+    from sceneverse_tpu_torch.ops.pointops import ball_query, three_nn
+
+    out = []
+    for kind, pts, ctr, scales in store:
+        if kind == "ball":
+            out += [ball_query(r, s, pts, ctr) for r, s in scales]
+        else:
+            out.append(three_nn(pts, ctr)[1])
+    return out
+
+
+def _pnet_case(name, module, inputs, call):
+    """One variant module on the card against its copy on the CPU, which
+    runs the first PNET_CPU_CLOUDS clouds of the batch (in eval mode each
+    cloud's outputs and gradients depend on its own points alone): f32
+    forward (no gradients): the FPS indices it returns and the ball-query
+    / 3-NN indices of each of its levels equal, the values within
+    TOL["f32"]; float64 forward and backward (of the outputs' sum): values
+    and the inputs' gradients within PNET_TOL; the whole batch's f32
+    forward + backward time on the card (CUDA events, median of 3)."""
+    import copy
+
+    import torch
+
+    dev = torch.device("cuda")
+    n = PNET_CPU_CLOUDS
+    card = copy.deepcopy(module).to(dev)
+    sides = (("cpu", module, torch.device("cpu"), [t[:n] for t in inputs]),
+             ("card", card, dev, inputs))
+    res, idx, vals, grads = {}, {}, {}, {}
+    for side, mod, d, ins in sides:
+        store = []
+        hooks = _pnet_index_hooks(mod, store)
+        with torch.no_grad():
+            v, inds = call(mod, *[t.to(d) for t in ins])
+        for h in hooks:
+            h.remove()
+        idx[side] = [t[:n].cpu() for t in list(inds) + _pnet_indices(store)]
+        vals[side] = v[:n].cpu()
+    same = len(idx["cpu"]) == len(idx["card"]) and all(
+        torch.equal(a, b) for a, b in zip(idx["cpu"], idx["card"]))
+    err, scale = _err(vals["card"], vals["cpu"])
+    res["f32_rel_err"] = err / max(scale, 1e-30)
+    res["index_sets"] = len(idx["cpu"])
+    res["shape"] = list(v.shape)
+    for side, mod, d, ins in sides:
+        mod.double()
+        leaves = [t.detach().double().to(d).requires_grad_() for t in ins]
+        out, _ = call(mod, *leaves)
+        out.sum().backward()
+        vals[side] = out.detach()[:n].cpu()
+        grads[side] = [t.grad[:n].cpu() for t in leaves]
+        mod.float()
+    rel = [_err(vals["card"], vals["cpu"])]
+    rel += [_err(a, b) for a, b in zip(grads["card"], grads["cpu"])]
+    res["f64_rel_err"] = max(e / max(s, 1e-30) for e, s in rel)
+    leaves = [t.detach().to(dev).requires_grad_() for t in inputs]
+
+    def fwd_bwd():
+        out, _ = call(card, *leaves)
+        out.sum().backward()
+
+    res["card_ms"] = cuda_ms(fwd_bwd, reps=3)
+    log(f"[pnet {name}] out {tuple(res['shape'])}, CPU on {n} clouds: "
+        f"{res['index_sets']} index sets (FPS, ball query, 3-NN) equal card "
+        f"vs CPU: {same}; f32 forward max_rel_err {res['f32_rel_err']:.3e} "
+        f"(tol {TOL['f32']:g}); f64 forward + input gradients max_rel_err "
+        f"{res['f64_rel_err']:.3e} (tol {PNET_TOL:g}); f32 forward + "
+        f"backward on the card {res['card_ms']:.3f} ms")
+    if not (same and res["f32_rel_err"] <= TOL["f32"]
+            and res["f64_rel_err"] <= PNET_TOL):
+        raise AssertionError(f"[pnet {name}] card differs from the CPU: {res}")
+    del card, leaves
+    _free()
+    return res
+
+
+def phase_variants():
+    """The model variants on the card: the two grounding variants and the
+    CLIP language tower in ``OpenVocab`` at SLICE_ARGS width
+    (``_variant_run``), then the PointNet++ variant modules (``_pnet_case``);
+    launches of each path for the kernel line (the PointNet++ variants run
+    plain PyTorch: no kernel)."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    out = {"runs": {name: _variant_run(name) for name in VARIANT_STEPS}}
+    gen = torch.Generator().manual_seed(18)
+    _build.reset_launches()
+    out["pointnet"] = {name: _pnet_case(name, *rest)
+                       for name, *rest in _pnet_modules(gen)}
+    out["pointnet_launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if out["pointnet_launches"]:
+        raise AssertionError("the PointNet++ variants launched "
+                             f"{out['pointnet_launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[variants] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def phase_trainer():
-    """The trainer: remat, accumulation, the 240-step run with a resume at
-    step 120, and the profile / NaN / eval.save switches."""
+    """The trainer: remat, accumulation, the 80-step run with a resume at
+    step 40, and the profile / NaN / eval.save switches."""
     out = {}
     for name, sub in (("remat", trainer_remat), ("accum", trainer_accum),
                       ("run", trainer_run), ("switches", trainer_switches)):
@@ -3417,6 +3849,7 @@ def main():
     data = phase_data(table)
     finetune = phase_finetune(table, data["run"]["exp_dir"])
     objcls = phase_objcls(table)
+    variants = phase_variants()
     ddp = phase_ddp()
     paths = {p: s["launches"] for p, s in slices.items()}
     paths["trainer"] = trainer["run"]["launches"]
@@ -3429,6 +3862,9 @@ def main():
     paths["objcls_test"] = objcls["entry"]["launches"]
     paths["perscene_eval"] = objcls["perscene"]["eval_launches"]
     paths["perscene_train"] = objcls["perscene"]["train_launches"]
+    for name, run in variants["runs"].items():
+        paths[name] = run["launches"]
+    paths["variant_pointnet"] = variants["pointnet_launches"]
     for name, run in ddp["runs"].items():  # every rank of both worlds
         paths[f"ddp_{name}"] = dict(sum(
             (collections.Counter(n) for n in run["launches"].values()),
@@ -3460,7 +3896,7 @@ def main():
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "trainer": trainer,
                    "data": data, "finetune": finetune, "objcls": objcls,
-                   "ddp": ddp, "card": card}, f,
+                   "variants": variants, "ddp": ddp, "card": card}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

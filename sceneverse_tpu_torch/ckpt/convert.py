@@ -13,8 +13,13 @@ read backwards:
     ``output.dense`` / ``output.LayerNorm``;
   * loc layer ``linear`` / ``norm`` -> Sequential ``0`` / ``1``;
     ``sem_cls_embed_layer_{linear,norm}`` -> ``sem_cls_embed_layer.{0,1}``;
-  * PointNet++ ``mlp.layers.K`` -> ``mlps.0.layerK``, BN ``bn`` -> ``bn.bn``;
-  * MLP heads ``*_head.{fc1,norm,fc2}`` -> Sequential ``*_head.{0,2,4}``;
+  * PointNet++ ``mlp.layers.K`` -> ``mlps.0.layerK``, the multi-scale
+    modules' ``mlps.S.layers.K`` -> ``mlps.S.layerK`` for every scale S and
+    ``post_mlp.layers.K`` -> ``post_mlp.layerK``, BN ``bn`` -> ``bn.bn``;
+  * separate attention projections ``q_proj`` / ``k_proj`` / ``v_proj``
+    and CLIP's HF tree keep their names (``kernel`` -> ``weight``);
+  * MLP heads ``*_head.{fc1,norm,fc2}`` and CLIP's ``projection.*`` ->
+    Sequential ``{0,2,4}``;
     QA head ``.mlp.fc.`` -> ``.mlp.fc.linear.``, ``answer_fc1`` /
     ``answer_fc2`` -> ``answer_cls.0`` / ``answer_cls.3``.
 Non-``Param`` variables (``text_features``) pass through and load as
@@ -48,6 +53,10 @@ _SEGMENTS = [
     ("_head.fc1.", "_head.0."),
     ("_head.norm.", "_head.2."),
     ("_head.fc2.", "_head.4."),
+    # CLIPLanguageEncoder's MLP head (get_mlp_head)
+    (".projection.fc1.", ".projection.0."),
+    (".projection.norm.", ".projection.2."),
+    (".projection.fc2.", ".projection.4."),
     # QA head
     (".mlp.fc.", ".mlp.fc.linear."),
     (".answer_fc1.", ".answer_cls.0."),
@@ -61,7 +70,10 @@ def _rename(path: str) -> str:
     for old, new in _SEGMENTS:
         n = n.replace(old, new)
     n = re.sub(r"\.mlp\.layers\.(\d+)\.", r".mlps.0.layer\1.", n)
-    n = re.sub(r"(\.mlps\.0\.layer\d+)\.bn\.", r"\1.bn.bn.", n)
+    n = re.sub(r"\.(mlps\.\d+|post_mlp)\.layers\.(\d+)\.", r".\1.layer\2.",
+               n)
+    n = re.sub(r"(\.(?:mlps\.\d+|post_mlp)\.layer\d+)\.bn\.", r"\1.bn.bn.",
+               n)
     return n[1:]
 
 

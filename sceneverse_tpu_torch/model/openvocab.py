@@ -23,6 +23,7 @@ policy is "full" or "dots"."""
 
 from __future__ import annotations
 
+import inspect
 import os
 
 import torch
@@ -127,8 +128,12 @@ class _OpenVocabBase(BaseModel):
 
     def _lang_cls(self, ids, masks):
         """The caption tower, read only at [CLS]; ``cls_only`` stays a
-        closed-over Python bool through remat (JAX :120-126)."""
-        if not cap_cls_only_enabled():
+        closed-over Python bool through remat (JAX :120-126). An encoder
+        whose ``forward`` takes no ``cls_only`` (CLIP) runs whole, as
+        there (JAX :113-118)."""
+        supported = "cls_only" in inspect.signature(
+            type(self.lang_encoder).forward).parameters
+        if not (supported and cap_cls_only_enabled()):
             return self._tower("language", self.lang_encoder, ids, masks)[:, 0]
         enc = self.lang_encoder
         return self._tower("language", enc, ids, masks,

@@ -32,6 +32,12 @@ in f32 and returns bf16 (``SCENEVERSE_BN_BF16``, default on), ReLU and the
 max-pool run in that type. The point ops, the grouping and the frozen
 kernels keep their own f32 / bf16 numerics with autocast off.
 
+The SA / FP variant library (``PointnetSAModuleMSG``,
+``PointnetSAModuleVotes``, ``PointnetSAModuleMSGVotes``,
+``PointnetFPModule``, ``PointnetLFPModuleMSG``; JAX :457-702) runs the
+literal route over plain point ops; ``SharedMLP(bn=False)`` gives its
+convs a bias and no BatchNorm.
+
 Train-mode BatchNorm is synchronised over a data-parallel world on all
 three routes (``parallel/mesh.py::global_sums``: the rows' sums, sums of
 squares or Gram, and the row count, summed over the ranks in one
@@ -48,8 +54,10 @@ import torch
 from torch import nn
 
 from sceneverse_tpu_torch.ops import sa_train
-from sceneverse_tpu_torch.ops.pointops import (ball_query, gather_points,
-                                              group_points)
+from sceneverse_tpu_torch.ops.pointops import (_sq3, ball_query,
+                                              furthest_point_sample,
+                                              gather_points, group_points,
+                                              three_interpolate, three_nn)
 from sceneverse_tpu_torch.ops.sa_forward import (_bf16, fold_shared_mlp, fps,
                                                 fused_sa_forward)
 from sceneverse_tpu_torch.ops.sample_group import sample_and_group
@@ -150,14 +158,17 @@ class _BatchNorm(nn.Module):
 
 
 class ConvBNReLU(nn.Module):
-    """1x1 conv (no bias, BN follows) + BatchNorm + ReLU."""
+    """1x1 conv + BatchNorm + ReLU; the conv has a bias only without
+    BatchNorm (``bn=False``: conv + ReLU)."""
 
-    def __init__(self, din: int, dout: int):
+    def __init__(self, din: int, dout: int, bn: bool = True):
         super().__init__()
-        self.conv = nn.Linear(din, dout, bias=False)
-        self.bn = _BatchNorm(dout)
+        self.conv = nn.Linear(din, dout, bias=not bn)
+        self.bn = _BatchNorm(dout) if bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bn is None:
+            return torch.relu(self.conv(x))
         if self.bn.bn.training and _bn_fold_enabled():
             return self._folded(x)
         return torch.relu(self.bn(self.conv(x)))
@@ -187,10 +198,10 @@ class ConvBNReLU(nn.Module):
 
 
 class SharedMLP(nn.Module):
-    def __init__(self, spec: List[int]):
+    def __init__(self, spec: List[int], bn: bool = True):
         super().__init__()
         for i in range(len(spec) - 1):
-            self.add_module(f"layer{i}", ConvBNReLU(spec[i], spec[i + 1]))
+            self.add_module(f"layer{i}", ConvBNReLU(spec[i], spec[i + 1], bn))
 
     def layers(self):
         return list(self.children())
@@ -207,7 +218,8 @@ def _fused_route(mlp: SharedMLP, grouped: torch.Tensor) -> bool:
     layers = mlp.layers()
     return (_sa_train_fused_enabled() and _bn_fold_enabled()
             and len(layers) == 3
-            and all(l.bn.bn.training and l.bn.bn.weight is not None
+            and all(l.bn is not None and l.bn.bn.training
+                    and l.bn.bn.weight is not None
                     and l.bn.bn.bias is not None for l in layers)
             and sa_train.supported(*grouped.shape[:3]))
 
@@ -354,6 +366,259 @@ class PointNetPP(nn.Module):
         for sa in self.encoder:
             xyz, feats = sa(xyz, feats)
         return self.fc(feats.reshape(feats.shape[0], -1))
+
+
+# ---------------------------------------------------------------------------
+# The SA / FP variant library (JAX pointnet.py:457-702; reference
+# pointnet2_modules.py:78-496): MSG, Votes and FP modules. No GPS config
+# builds them. They run the plain point ops of ops/pointops.py, as the JAX
+# variants run its plain XLA ops, grouping with autocast off.
+# ---------------------------------------------------------------------------
+
+
+def _in_ball(xyz, new_xyz, radius):
+    """(B, M, N) strict ``d2 < r^2`` of every point against every center."""
+    d = xyz[:, None, :, :] - new_xyz[:, :, None, :]
+    return _sq3(d[..., 0], d[..., 1], d[..., 2]) < torch.tensor(
+        radius * radius, dtype=torch.float32)
+
+
+def _query_group(xyz, new_xyz, features, radius, nsample, use_xyz,
+                 normalize_xyz=False, sample_uniformly=False,
+                 generator=None):
+    """QueryAndGroup (JAX ``pointnet.py:457-490``; reference
+    pointnet2_utils.py:291-373), channels-last: (grouped (B, M, S, C'),
+    grouped_xyz (B, M, S, 3)). ``sample_uniformly`` refills the pad slots
+    (ball query pads with the first hit) with uniform draws from ``generator``
+    over the ball's first min(hits, S) points, the same rule as JAX's: a
+    slot below the ball's count keeps its point, slot s above takes
+    ``idx[floor(u_s * count)]``. The draws themselves differ from JAX's
+    threefry stream by design."""
+    with torch.no_grad():
+        idx = ball_query(radius, nsample, xyz.detach(), new_xyz.detach())
+        if sample_uniformly:
+            cnt = _in_ball(xyz.detach(), new_xyz.detach(), radius).sum(-1)
+            cnt = cnt.clamp(1, nsample)[..., None]  # empty ball: {0}
+            u = torch.rand(idx.shape, generator=generator,
+                           device=idx.device)
+            slot = torch.floor(u * cnt).long()
+            resampled = torch.gather(idx, 2, slot)
+            keep = torch.arange(nsample, device=idx.device) < cnt
+            idx = torch.where(keep, idx, resampled)
+    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if normalize_xyz:
+        grouped_xyz = grouped_xyz / radius
+    if features is None:
+        return grouped_xyz, grouped_xyz
+    feats = group_points(features, idx)
+    return (torch.cat([grouped_xyz, feats], -1) if use_xyz else feats,
+            grouped_xyz)
+
+
+def _group_all(xyz, features, use_xyz):
+    """GroupAll: one center holding every point, (B, 1, N, C)."""
+    if features is not None and use_xyz:
+        return torch.cat([xyz, features], -1)[:, None]
+    return (features if features is not None else xyz)[:, None]
+
+
+def _scale_mlps(mlps, use_xyz, bn):
+    return nn.ModuleList([
+        SharedMLP([spec[0] + 3 if use_xyz else spec[0]] + list(spec[1:]), bn)
+        for spec in mlps])
+
+
+def _sample(xyz, npoint, inds=None):
+    """(new_xyz, inds): the FPS centers (or the given ``inds``) gathered with
+    their gradient; (None, inds) for GroupAll."""
+    if npoint is None:
+        return None, inds
+    if inds is None:
+        inds = furthest_point_sample(xyz.detach(), npoint)
+    return gather_points(xyz, inds), inds
+
+
+class PointnetSAModuleMSG(nn.Module):
+    """Multi-scale grouping (JAX ``pointnet.py:493-530``; reference
+    pointnet2_modules.py:78-124): one FPS, then per (radius, nsample, mlp)
+    scale a ball query, SharedMLP and max-pool; the scales' features
+    concatenated on the channel axis."""
+
+    def __init__(self, *, npoint: Optional[int], radii: List[float],
+                 nsamples: List[int], mlps: List[List[int]], bn: bool = True,
+                 use_xyz: bool = True):
+        super().__init__()
+        assert len(radii) == len(nsamples) == len(mlps)
+        self.npoint = npoint
+        self.radii, self.nsamples = list(radii), list(nsamples)
+        self.use_xyz = use_xyz
+        self.mlps = _scale_mlps(mlps, use_xyz, bn)
+
+    def _scales(self, xyz, new_xyz, features):
+        outs = []
+        for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
+            with _no_autocast(xyz):
+                grouped = (_query_group(xyz, new_xyz, features, radius,
+                                        nsample, self.use_xyz)[0]
+                           if new_xyz is not None
+                           else _group_all(xyz, features, self.use_xyz))
+            outs.append(mlp(grouped).amax(dim=2))
+        return torch.cat(outs, -1)
+
+    def forward(self, xyz, features):
+        new_xyz, _ = _sample(xyz, self.npoint)
+        return new_xyz, self._scales(xyz, new_xyz, features)
+
+
+class PointnetSAModuleVotes(nn.Module):
+    """Single-scale SA with the vote-index passthrough and max / avg / rbf
+    pooling (JAX ``pointnet.py:533-609``; reference
+    pointnet2_modules.py:164-272). Returns (new_xyz, features, inds), and
+    the in-ball count min(hits, nsample) with ``ret_unique_cnt``. The
+    ``sample_uniformly`` refills draw from ``generator`` when one is passed,
+    else from the module's own stream (``seed``, made on the points' device
+    at the first call), which each call advances, as JAX's
+    ``resample_rngs``."""
+
+    def __init__(self, *, mlp: List[int], npoint: Optional[int] = None,
+                 radius: Optional[float] = None,
+                 nsample: Optional[int] = None, bn: bool = True,
+                 use_xyz: bool = True, pooling: str = "max",
+                 sigma: Optional[float] = None, normalize_xyz: bool = False,
+                 sample_uniformly: bool = False,
+                 ret_unique_cnt: bool = False, seed: int = 0):
+        super().__init__()
+        if ret_unique_cnt and not sample_uniformly:
+            raise ValueError("ret_unique_cnt needs sample_uniformly "
+                             "(reference pointnet2_utils.py:311-312)")
+        if pooling not in ("max", "avg", "rbf"):
+            raise ValueError(f"unknown pooling {pooling!r}")
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.pooling, self.use_xyz = pooling, use_xyz
+        self.sample_uniformly = sample_uniformly
+        self.ret_unique_cnt = ret_unique_cnt
+        self.sigma = sigma if sigma is not None else (
+            radius / 2 if radius is not None else None)
+        self.normalize_xyz = normalize_xyz
+        self.seed, self.generator = seed, None
+        self.mlps = _scale_mlps([mlp], use_xyz and bool(mlp), bn)
+
+    def _generator(self, device):
+        if self.generator is None or self.generator.device != device:
+            self.generator = torch.Generator(device=device)
+            self.generator.manual_seed(self.seed)
+        return self.generator
+
+    def forward(self, xyz, features, inds=None, generator=None):
+        if inds is not None and inds.shape[1] != self.npoint:
+            raise ValueError(f"inds of {inds.shape[1]} centers, npoint "
+                             f"{self.npoint}")
+        new_xyz, inds = _sample(xyz, self.npoint, inds)
+        with _no_autocast(xyz):
+            if new_xyz is not None:
+                if self.sample_uniformly and generator is None:
+                    generator = self._generator(xyz.device)
+                grouped, grouped_xyz = _query_group(
+                    xyz, new_xyz, features, self.radius, self.nsample,
+                    self.use_xyz, normalize_xyz=self.normalize_xyz,
+                    sample_uniformly=self.sample_uniformly,
+                    generator=generator)
+            else:
+                grouped = _group_all(xyz, features, self.use_xyz)
+                grouped_xyz = xyz[:, None]
+        h = self.mlps[0](grouped)  # (B, M, S, C')
+        if self.pooling == "max":
+            out = h.amax(dim=2)
+        elif self.pooling == "avg":
+            out = h.mean(dim=2)
+        else:  # RBF-weighted sum over nsample (reference :264-268)
+            rbf = torch.exp(-torch.sum(grouped_xyz ** 2, -1)
+                            / (self.sigma ** 2) / 2)
+            out = torch.sum(h * rbf[..., None], dim=2) / float(self.nsample)
+        if not self.ret_unique_cnt:
+            return new_xyz, out, inds
+        with torch.no_grad():
+            cnt = _in_ball(xyz.detach(), new_xyz.detach(), self.radius).sum(
+                -1).clamp_max(self.nsample).to(torch.int32)
+        return new_xyz, out, inds, cnt
+
+
+class PointnetSAModuleMSGVotes(nn.Module):
+    """MSG set abstraction with the vote-index passthrough (JAX
+    ``pointnet.py:612-636``; reference pointnet2_modules.py:274-354)."""
+
+    def __init__(self, *, mlps: List[List[int]], npoint: Optional[int],
+                 radii: List[float], nsamples: List[int], bn: bool = True,
+                 use_xyz: bool = True):
+        super().__init__()
+        self.msg = PointnetSAModuleMSG(npoint=npoint, radii=radii,
+                                       nsamples=nsamples, mlps=mlps, bn=bn,
+                                       use_xyz=use_xyz)
+        self.npoint = npoint
+
+    def forward(self, xyz, features, inds=None):
+        new_xyz, inds = _sample(xyz, self.npoint, inds)
+        return new_xyz, self.msg._scales(xyz, new_xyz, features), inds
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation (JAX ``pointnet.py:639-665``; reference
+    pointnet2_modules.py:356-416): inverse-distance weights over the 3
+    nearest known points, the interpolated known features concatenated with
+    the unknown points' own, a SharedMLP. The distances carry no gradient,
+    as the reference's CUDA ``three_nn`` gives none (``ops/pointops.py``)."""
+
+    def __init__(self, *, mlp: List[int], bn: bool = True):
+        super().__init__()
+        self.mlps = nn.ModuleList([SharedMLP(mlp, bn)])
+
+    def forward(self, unknown, known, unknown_feats, known_feats):
+        """unknown (B, n, 3); known (B, m, 3) or None (``known_feats``
+        broadcast to every point); unknown_feats (B, n, C1) or None;
+        known_feats (B, m, C2) -> (B, n, mlp[-1])."""
+        with _no_autocast(unknown):
+            if known is not None:
+                dist, idx = three_nn(unknown, known)
+                recip = 1.0 / (dist + 1e-8)
+                weight = recip / torch.sum(recip, dim=2, keepdim=True)
+                interp = three_interpolate(known_feats, idx, weight)
+            else:
+                interp = known_feats.expand(-1, unknown.shape[1], -1)
+        feats = (torch.cat([interp, unknown_feats], -1)
+                 if unknown_feats is not None else interp)
+        return self.mlps[0](feats[:, :, None, :])[:, :, 0, :]
+
+
+class PointnetLFPModuleMSG(nn.Module):
+    """Learnable multi-scale feature propagation from xyz1 onto xyz2 (JAX
+    ``pointnet.py:668-702``; reference pointnet2_modules.py:418-496): per
+    scale, xyz1's features grouped around xyz2, SharedMLP and max-pool,
+    xyz2's own features concatenated, the shared ``post_mlp``; the scales
+    concatenated."""
+
+    def __init__(self, *, mlps: List[List[int]], radii: List[float],
+                 nsamples: List[int], post_mlp: List[int], bn: bool = True,
+                 use_xyz: bool = True):
+        super().__init__()
+        assert len(mlps) == len(nsamples) == len(radii)
+        self.radii, self.nsamples = list(radii), list(nsamples)
+        self.use_xyz = use_xyz
+        self.post_mlp = SharedMLP(post_mlp, bn)
+        self.mlps = _scale_mlps(mlps, use_xyz, bn)
+
+    def forward(self, xyz2, xyz1, features2, features1):
+        """xyz2 (B, N2, 3), xyz1 (B, N1, 3), features2 (B, N2, C2) or None,
+        features1 (B, N1, C1) or None -> (B, N2, sum of post_mlp[-1])."""
+        outs = []
+        for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
+            with _no_autocast(xyz1):
+                grouped, _ = _query_group(xyz1, xyz2, features1, radius,
+                                          nsample, self.use_xyz)
+            h = mlp(grouped).amax(dim=2)
+            if features2 is not None:
+                h = torch.cat([h, features2], -1)
+            outs.append(self.post_mlp(h[:, :, None, :])[:, :, 0, :])
+        return torch.cat(outs, -1)
 
 
 @torch.no_grad()

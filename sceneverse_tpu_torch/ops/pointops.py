@@ -9,6 +9,9 @@ semantics; these are the oracle for FPS and grouping (the fused SA kernel in
   * ball query: strict ``d2 < r^2``, the first ``nsample`` hits in index
     order, slots past the hit count padded with the first hit, all zeros for
     an empty ball.
+  * three_nn: the 3 nearest known points, nearer first, ties to the lower
+    index (``lax.top_k``'s order); ``three_interpolate`` the weighted sum of
+    their features, differentiable through the gather.
 """
 
 from __future__ import annotations
@@ -78,3 +81,29 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     slots = torch.arange(nsample, device=xyz.device, dtype=torch.int32)
     filled = slots[None, None, :] < count[..., None]
     return torch.where(filled, idx, first).to(torch.int32)
+
+
+@torch.no_grad()
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """(B, n, 3), (B, m, 3) -> (sqrt distances (B, n, 3), int32 indices
+    (B, n, 3)) of each unknown point's 3 nearest known points (sceneverse_tpu
+    pointops.py:185): three passes of a first-minimum argmin, so equal
+    distances go to the lower index as ``lax.top_k`` orders them."""
+    diff = unknown[:, :, None, :] - known[:, None, :, :]
+    d2 = _sq3(diff[..., 0], diff[..., 1], diff[..., 2])  # (B, n, m)
+    dists, idxs = [], []
+    for _ in range(3):
+        i = torch.argmin(d2, dim=-1, keepdim=True)
+        dists.append(torch.gather(d2, -1, i))
+        idxs.append(i)
+        d2 = d2.scatter(-1, i, torch.inf)
+    dist = torch.cat(dists, -1)
+    return (torch.sqrt(torch.clamp_min(dist, 0.0)),
+            torch.cat(idxs, -1).to(torch.int32))
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """(B, m, C) features, (B, n, 3) indices and weights -> (B, n, C): the
+    weighted sum of the 3 gathered rows (sceneverse_tpu pointops.py:205)."""
+    return torch.sum(group_points(features, idx) * weight[..., None], dim=2)

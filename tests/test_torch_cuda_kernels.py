@@ -247,6 +247,9 @@ def test_ball_group_matches_plain(dev, G, N, C, m, ns, r, exact):
     (300, 300, False, 0.1, "additive"),
     # ragged: neither length a multiple of 16 or 64
     (37, 300, True, 0.1, "keypad"),
+    # the grounding variants' cross-attention: 80 object queries over 50
+    # text keys, 50 over 80
+    (80, 50, False, 0.1, "keypad"), (50, 80, False, 0.1, "keypad"),
 ])
 def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate, padkind):
     from sceneverse_tpu_torch.ops import mha
