@@ -9,6 +9,20 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: compiles every kernel under sceneverse_tpu_torch/csrc with nvcc
      for sm_90a, one nvcc per source, all started together (cached in
      build/kernels/).
+  2b. preprocess (``phase_preprocess``): the offline tools. One raw scan
+     per processor written from a seed at its release's scale (PREPROCESS_SCANS:
+     3RScan 200,000 vertices with a 200,000-vertex label mesh, MultiScan
+     300,000 vertices and 600,000 faces, ARKitScenes 1,000,000 vertices,
+     Structured3D 400,000 points; 3RScan with a 1024 x 1024 texture), each
+     processor run with ``device="cuda"`` and ``device="cpu"`` from one seed
+     (3RScan's CPU run searches with the JAX package's ``cKDTree`` query in
+     place of the brute force): instance ids, labels, align angles and
+     split files equal, vertices and colours within PREPROCESS_TOL, every
+     ``.pth`` numpy on the host; ``generate_ssg`` on each card-processed
+     tree on both devices, its JSON files byte-equal; the card's
+     nearest-vertex search against ``cKDTree`` (index differences must be
+     exact ties); no port kernel launched. Prints each processor's device
+     pass and whole time on each device.
   3. kernels: each hand-written kernel against its plain PyTorch twin on the
      card at the GPS pretrain shapes (f32 and bf16 where the path has both),
      with CUDA-event times of kernel, twin and, where one PyTorch call
@@ -3819,6 +3833,243 @@ def phase_variants():
     return out
 
 
+PREPROCESS_SEED = 19
+PREPROCESS_DIR = os.path.join(REPO, "build", "preprocess")
+# one raw scan per processor at the scale of its release (ARKitScenes and
+# Structured3D above the 240K cap, so that it runs)
+PREPROCESS_SCANS = {
+    "RScanProcessor": ("rscan", {"n_vertices": 200_000, "n_objects": 40}),
+    "MultiScanProcessor": ("multiscan", {"n_vertices": 300_000,
+                                         "n_faces": 600_000, "n_objects": 40}),
+    "ARKitScenesProcessor": ("arkit", {"n_vertices": 1_000_000, "n_boxes": 30}),
+    "Structured3DProcessor": ("s3d", {"n_points": 400_000, "n_boxes": 40}),
+}
+RSCAN_TEXTURE = (1024, 1024)
+PREPROCESS_TOL = 1e-9
+F64_PEAK = 34e12  # H100 SXM data sheet: FP64 outside the tensor cores
+
+
+def write_raw_scans(root):
+    """The four raw scans of PREPROCESS_SCANS under ``root``, from one
+    seed."""
+    import numpy as np
+
+    from sceneverse_tpu_torch.preprocess import fixture
+
+    rng = np.random.RandomState(PREPROCESS_SEED)
+    raw = {name: os.path.join(root, sub)
+           for name, (sub, _) in PREPROCESS_SCANS.items()}
+    fixture.write_rscan_scan(raw["RScanProcessor"], "scan_rscan", rng,
+                             texture=RSCAN_TEXTURE,
+                             **PREPROCESS_SCANS["RScanProcessor"][1])
+    fixture.write_multiscan_scan(raw["MultiScanProcessor"], "scene_00000_00",
+                                 rng, **PREPROCESS_SCANS["MultiScanProcessor"][1])
+    fixture.write_arkit_scan(raw["ARKitScenesProcessor"], "Training", "41069021",
+                             rng, **PREPROCESS_SCANS["ARKitScenesProcessor"][1])
+    fixture.write_s3d_scan(raw["Structured3DProcessor"], "train", "scene_00000",
+                           rng, **PREPROCESS_SCANS["Structured3DProcessor"][1])
+    return raw
+
+
+def kdtree_nearest(query, ref, block_elems=None):
+    """The nearest-vertex search of the JAX package's 3RScan processor
+    (``processors.py:186-187``: one ``cKDTree`` query), on host tensors."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    dist, nn = cKDTree(ref.numpy()).query(query.numpy(), k=1)
+    return torch.from_numpy(dist), torch.from_numpy(nn)
+
+
+def _run_processor(name, raw, out, device):
+    from sceneverse_tpu_torch.config import Config
+    from sceneverse_tpu_torch.preprocess import processors
+
+    t0 = time.perf_counter()
+    proc = getattr(processors, name)(Config({
+        "data_root": raw, "save_root": out, "num_workers": 1,
+        "output": {"pcd": True}, "device": device, "seed": PREPROCESS_SEED}))
+    proc.process_scans()
+    return {"seconds": time.perf_counter() - t0,
+            "device_pass_s": proc.device_seconds}
+
+
+def _processed(out):
+    """{relative path: content} of a processor's outputs, each ``.pth``
+    loaded on the host as the data layer loads it."""
+    import numpy as np
+    import torch
+
+    got = {}
+    for base, _, files in os.walk(out):
+        for f in files:
+            path = os.path.join(base, f)
+            rel = os.path.relpath(path, out)
+            if f.endswith(".pth"):
+                got[rel] = torch.load(path, weights_only=False)
+            elif f.endswith(".npy"):
+                got[rel] = float(np.load(path))
+            else:
+                got[rel] = open(path).read()
+    return got
+
+
+def _compare_processed(tag, got, want):
+    """Instance ids, labels, angles and split files equal; vertices and
+    colours within PREPROCESS_TOL; the arrays numpy on the host."""
+    import numpy as np
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{tag}: outputs {sorted(got)} != {sorted(want)}")
+    err = 0.0
+    n_points = 0
+    for key, ref in want.items():
+        out = got[key]
+        if "pcd_with_global_alignment" in key and key.endswith(".pth"):
+            if not all(type(a) is np.ndarray for a in out):
+                raise AssertionError(f"{tag} {key}: not numpy: "
+                                     f"{[type(a) for a in out]}")
+            (v, c, inst), (rv, rc, rinst) = out, ref
+            if not np.array_equal(inst, rinst) or inst.dtype != rinst.dtype:
+                raise AssertionError(f"{tag} {key}: instance ids differ at "
+                                     f"{int((inst != rinst).sum())} points")
+            if v.shape != rv.shape or c.shape != rc.shape:
+                raise AssertionError(f"{tag} {key}: shapes differ")
+            err = max(err, float(np.abs(v - rv).max()),
+                      float(np.abs(c - rc).max()))
+            n_points = len(v)
+        elif out != ref:
+            raise AssertionError(f"{tag} {key}: {out!r} != {ref!r}")
+    if not err <= PREPROCESS_TOL:
+        raise AssertionError(f"{tag}: vertices or colours differ by {err}")
+    return err, n_points
+
+
+def rscan_search_vs_kdtree(raw):
+    """The card's nearest-vertex search against ``cKDTree`` on the 3RScan
+    scan: indices that differ, of them the exact ties, and the instances a
+    tie changes."""
+    import numpy as np
+    import torch
+
+    from sceneverse_tpu_torch.preprocess import processors
+    from sceneverse_tpu_torch.preprocess.mesh_io import load_ply
+
+    scan = os.path.join(raw, "scan_rscan")
+    verts, _ = processors._read_obj(os.path.join(scan, "mesh.refined.v2.obj"))
+    label = load_ply(os.path.join(scan, "labels.instances.annotated.v2.ply"))
+    ref = torch.from_numpy(label["vertices"].astype(np.float64))
+    query = torch.from_numpy(verts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist, nn = processors.nearest_vertex(query.cuda(), ref.cuda())
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    kd_dist, kd_nn = kdtree_nearest(query, ref)
+    dist, nn = dist.cpu(), nn.cpu()
+    differ = (nn != kd_nn).nonzero().squeeze(1)
+    ties = int((dist[differ] == kd_dist[differ]).sum())
+    d_err = float((dist - kd_dist).abs().max())
+    with open(os.path.join(scan, "mesh.refined.0.010000.segs.v2.json")) as f:
+        seg = np.asarray(json.load(f)["segIndices"])
+    changed = int((seg[nn[differ].numpy()] != seg[kd_nn[differ].numpy()]).sum())
+    if len(differ) != ties or d_err > 1e-12:
+        raise AssertionError(f"[preprocess] RScan search: {len(differ)} "
+                             f"indices differ from cKDTree, {ties} of them "
+                             f"ties; distances within {d_err}")
+    pairs = len(verts) * len(ref)
+    # 3 differences, 3 squares, 2 sums a pair; each input read once, the
+    # distances and indices written once
+    bound_s = max(8 * pairs / F64_PEAK,
+                  (query.numel() + ref.numel() + 2 * len(verts)) * 8 / HBM_RATE)
+    return {"pairs": pairs, "search_s": search_s, "bound_s": bound_s,
+            "index_differs": len(differ), "ties": ties,
+            "tie_segments_differ": changed, "max_dist_err": d_err}
+
+
+def phase_preprocess(card):
+    """The offline tools on the card: each processor on its raw scan with
+    ``device="cuda"`` and ``device="cpu"`` from one seed (3RScan's CPU run
+    with the JAX package's cKDTree search in place of the brute force, so
+    the card is held against ``cKDTree``), outputs compared; then
+    ``generate_ssg`` on the card's processed trees on both devices, JSON
+    byte-equal. Launches none of the port's kernels."""
+    import shutil
+
+    import torch
+
+    from sceneverse_tpu_torch.ops import _build
+    from sceneverse_tpu_torch.preprocess import processors
+    from sceneverse_tpu_torch.preprocess.ssg.ssg_main import generate_ssg
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PREPROCESS_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    raw = write_raw_scans(os.path.join(PREPROCESS_DIR, "raw"))
+    out = {"card": card, "write_s": time.perf_counter() - t0,
+           "scans": {n: s[1] for n, s in PREPROCESS_SCANS.items()},
+           "processors": {}, "ssg": {}}
+    log(f"[preprocess] raw scans written in {out['write_s']:.1f} s")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for name, (sub, _) in PREPROCESS_SCANS.items():
+        trees = {d: os.path.join(PREPROCESS_DIR, d, sub) for d in ("cuda", "cpu")}
+        row = {"cuda": _run_processor(name, raw[name], trees["cuda"], "cuda")}
+        if name == "RScanProcessor":
+            brute = processors.nearest_vertex
+            processors.nearest_vertex = kdtree_nearest
+            try:
+                row["cpu"] = _run_processor(name, raw[name], trees["cpu"], "cpu")
+            finally:
+                processors.nearest_vertex = brute
+            row["cpu"]["search"] = "cKDTree"
+        else:
+            row["cpu"] = _run_processor(name, raw[name], trees["cpu"], "cpu")
+        row["max_abs_err"], row["points_saved"] = _compare_processed(
+            f"[preprocess] {name}", _processed(trees["cuda"]),
+            _processed(trees["cpu"]))
+        out["processors"][name] = row
+        log(f"[preprocess] {name}: cuda device pass "
+            f"{row['cuda']['device_pass_s']:.3f} s, whole "
+            f"{row['cuda']['seconds']:.3f} s; cpu device pass "
+            f"{row['cpu']['device_pass_s']:.3f} s, whole "
+            f"{row['cpu']['seconds']:.3f} s; card = cpu (max err "
+            f"{row['max_abs_err']:.3g}, {row['points_saved']} points)  [{card}]")
+        tree = os.path.join(trees["cuda"], "scan_data")
+        ssg = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            rels, objs = generate_ssg(tree, os.path.join(trees["cuda"], f"ssg_{device}"),
+                                      device=device, seed=PREPROCESS_SEED)
+            ssg[device] = {"seconds": time.perf_counter() - t0,
+                           "objects": sum(len(o) for o in objs.values()),
+                           "relations": sum(len(r["relationships"])
+                                            for r in rels.values())}
+        for f in ("relationships.json", "objects.json"):
+            files = [open(os.path.join(trees["cuda"], f"ssg_{d}", f), "rb").read()
+                     for d in ("cuda", "cpu")]
+            if files[0] != files[1]:
+                raise AssertionError(f"[preprocess] {name}: ssg {f} differs "
+                                     "between cuda and cpu")
+        if not ssg["cuda"]["objects"] or not ssg["cuda"]["relations"]:
+            raise AssertionError(f"[preprocess] {name}: empty scene graph {ssg}")
+        out["ssg"][name] = ssg
+        log(f"[preprocess] {name} ssg: cuda {ssg['cuda']['seconds']:.3f} s, "
+            f"cpu {ssg['cpu']['seconds']:.3f} s, {ssg['cuda']['objects']} "
+            f"objects, {ssg['cuda']['relations']} relations, JSON equal")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches:
+        raise AssertionError(f"[preprocess] launched {launches}")
+    out["rscan_search"] = rscan_search_vs_kdtree(raw["RScanProcessor"])
+    log(f"[preprocess] RScan search vs cKDTree: {out['rscan_search']}")
+    shutil.rmtree(PREPROCESS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[preprocess] phase took {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def phase_trainer():
     """The trainer: remat, accumulation, the 80-step run with a resume at
     step 40, and the profile / NaN / eval.save switches."""
@@ -3836,6 +4087,7 @@ def main():
     import torch
 
     phase_build()
+    preprocess = phase_preprocess(card)
     table = Table()
     phase_sa(table)
     phase_sample_group(table)
@@ -3896,7 +4148,8 @@ def main():
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "trainer": trainer,
                    "data": data, "finetune": finetune, "objcls": objcls,
-                   "variants": variants, "ddp": ddp, "card": card}, f,
+                   "variants": variants, "ddp": ddp,
+                   "preprocess": preprocess, "card": card}, f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -26,12 +26,12 @@ PORT_FILES = sorted(
               recursive=True)
     + [os.path.join(REPO, f) for f in
        ("run_torch.py", "chip_smoke.py", "profile_torch.py",
-        "sa_train_spread.py")])
+        "sa_train_spread.py", "visualize_data_torch.py")])
 CONFIGS = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "configs", "final", "**", "*.yaml"),
               recursive=True))
-FORBIDDEN = ("sceneverse_tpu", "jax", "jaxlib", "flax")
+FORBIDDEN = ("sceneverse_tpu", "jax", "jaxlib", "flax", "networkx")
 SYNTH = os.path.join(REPO, "configs", "final", "synthetic_pretrain.yaml")
 
 
@@ -68,9 +68,18 @@ def test_the_import_check_sees_every_port_file():
     objcls = [f"sceneverse_tpu_torch/{m}.py" for m in (
         "model/build", "model/objcls", "modules/vision/obj_cls_encoder",
         "evaluator/objcls_eval", "trainer/objpretrain_trainer")]
+    tools = [f"sceneverse_tpu_torch/{m}.py" for m in (
+        "common/io_utils", "preprocess/__init__", "preprocess/align_utils",
+        "preprocess/build", "preprocess/fixture", "preprocess/hm_semantic",
+        "preprocess/label_convert", "preprocess/mesh_io",
+        "preprocess/processors", "preprocess/ssg/__init__",
+        "preprocess/ssg/dictionary", "preprocess/ssg/objnode",
+        "preprocess/ssg/relationships", "preprocess/ssg/ssg_main",
+        "preprocess/ssg/visualize")] + ["visualize_data_torch.py"]
     assert set(data) <= set(PORT_FILES)
     assert set(finetune) <= set(PORT_FILES)
     assert set(objcls) <= set(PORT_FILES)
+    assert set(tools) <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", CONFIGS)
@@ -122,3 +131,49 @@ def test_base_trainer_without_device_and_without_cuda_raises(monkeypatch,
     cfg = load_config(SYNTH, [f"exp_dir={tmp_path}", "device=cuda"])
     with pytest.raises(RuntimeError, match="CUDA"):
         build_trainer(cfg)
+
+
+OFFLINE_TOOLS_WITHOUT_OPTIONAL_PACKAGES = """
+import sys
+for name in ("networkx", "joblib", "matplotlib", "jax"):
+    sys.modules[name] = None  # an import of any of them raises
+import json, pathlib
+import numpy as np
+from sceneverse_tpu_torch.config import Config
+from sceneverse_tpu_torch.data.fixture import write_synthetic_tree
+from sceneverse_tpu_torch.preprocess import fixture
+from sceneverse_tpu_torch.preprocess.processors import Structured3DProcessor
+from sceneverse_tpu_torch.preprocess.ssg.ssg_main import generate_ssg
+
+root = pathlib.Path(sys.argv[1])
+fixture.write_s3d_scan(root / "raw", "train", "scene_00000",
+                       np.random.RandomState(0), 200, 4)
+Structured3DProcessor(Config({
+    "data_root": str(root / "raw"), "save_root": str(root / "out"),
+    "output": {"pcd": True}, "device": "cpu", "seed": 0})).process_scans()
+tree = write_synthetic_tree(root / "tree", n_scans=1)
+rels, objs = generate_ssg(tree / "scan_data", root / "ssg", device="cpu",
+                          seed=0)
+assert rels and objs
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] == "sceneverse_tpu")))
+"""
+
+
+def test_offline_tools_run_without_networkx_joblib_matplotlib(tmp_path):
+    """The card's machine has none of networkx, joblib and matplotlib: a
+    processor and the scene-graph generator run with all three (and JAX)
+    unimportable, and load nothing of the JAX package."""
+    import json
+    import subprocess
+    import sys
+
+    run = subprocess.run(
+        [sys.executable, "-c", OFFLINE_TOOLS_WITHOUT_OPTIONAL_PACKAGES,
+         str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert json.loads(run.stdout.strip().splitlines()[-1]) == []
+    assert (tmp_path / "ssg/relationships.json").exists()
+    assert (tmp_path / "out/scan_data/pcd_with_global_alignment/"
+            "scene_00000.pth").exists()
