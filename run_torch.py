@@ -98,7 +98,7 @@ def main(argv=None):
     cfg = load_cfg(argv)
     made = mesh.init_from_env(dist_backend(cfg))
     try:
-        cfg.exp_dir = mesh.all_gather_objects(cfg.exp_dir)[0]
+        cfg.exp_dir = mesh.all_gather_objects(cfg.exp_dir, "world")[0]
         if mesh.rank() == 0:
             os.makedirs(cfg.exp_dir, exist_ok=True)
             save_config(cfg, str(Path(cfg.exp_dir) / "config.yaml"))

@@ -27,7 +27,7 @@ def make_dir(path):
 def gather_dict(metrics: dict) -> dict:
     """Sum each entry of a metric dict (a value or a (value, count) pair)
     over the ranks, as float64 arrays (one process: returned as it is)."""
-    if mesh.world() == 1:
+    if mesh.dp_world() == 1:
         return metrics
     keys = sorted(metrics)
     arrs = [np.asarray(metrics[k], np.float64) for k in keys]

@@ -124,7 +124,7 @@ def _make_loader(dataset, cfg, shuffle, drop_last):
 
     workers = int(cfg.dataloader.get("num_workers", 0))
     batch = int(cfg.dataloader.batchsize)
-    rows = mesh.rank_rows(batch, mesh.world(), mesh.rank())
+    rows = mesh.rank_rows(batch, mesh.dp_world(), mesh.dp_rank())
     # a generator of its own, as JAX ``data/build.py::_seeded_generator``:
     # iterating one loader moves no other loader's shuffle
     gen = torch.Generator().manual_seed(int(cfg.get("rng_seed", 42)))
@@ -163,10 +163,10 @@ def build_dataloader(cfg, split="train"):
     dataset = get_dataset(cfg, split)
     if split == "train":
         return _make_loader(dataset, cfg, shuffle=True, drop_last=True)
-    if mesh.world() > 1:
+    if mesh.dp_world() > 1:
         from sceneverse_tpu_torch.data.sharding import ShardedDataset
 
-        dataset = [ShardedDataset(ds, mesh.world(), mesh.rank())
+        dataset = [ShardedDataset(ds, mesh.dp_world(), mesh.dp_rank())
                    for ds in dataset]
     loaders = [
         _make_loader(ds, cfg, shuffle=False, drop_last=False) for ds in dataset

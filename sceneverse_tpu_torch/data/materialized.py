@@ -657,16 +657,17 @@ class MaterializedBatchLoader:
     def __iter__(self):
         """Global batches; over a world of N processes each rank builds the
         whole global batch, as every JAX process does (the crops' random
-        fills draw from one stream in item order), and keeps its
-        ``mesh.rank_rows``."""
+        fills draw from one stream in item order), and keeps its dp
+        shard's ``mesh.rank_rows``."""
         rng = np.random.default_rng((self.seed, self.epoch))
         self.epoch += 1
         order = rng.permutation(self.n_items)
-        rows = mesh.rank_rows(self.batch_size, mesh.world(), mesh.rank())
+        rows = mesh.rank_rows(self.batch_size, mesh.dp_world(),
+                              mesh.dp_rank())
         for b in range(len(self)):
             batch = self._assemble(
                 order[b * self.batch_size:(b + 1) * self.batch_size], rng)
-            yield batch if mesh.world() == 1 else {
+            yield batch if mesh.dp_world() == 1 else {
                 k: v[rows] for k, v in batch.items()}
 
 

@@ -1,12 +1,12 @@
 """Evaluator protocol (port of sceneverse_tpu/evaluator/build.py):
 ``batch_metrics`` returns ``{name: (value, count)}`` with ``include_count``
 (device tensors, no host sync), ``update`` accumulates, ``record``
-sums every (value, count) over the ranks of a data-parallel world (JAX
-``evaluator/build.py:48-53,105-107``: each rank evaluated its own shard,
-``data/sharding.py``), ratio-reduces on the host once and tracks the best
-``target_metric``. With ``eval.save`` an evaluator gathers per-item rows
-in ``eval_results`` and ``record`` writes every rank's, in rank order (the
-shards' order), to ``<exp_dir>/eval_results/<Evaluator>/results.json`` on
+sums every (value, count) over the dp group of a data-parallel world
+(JAX ``evaluator/build.py:48-53,105-107``: each dp rank evaluated its own
+shard, ``data/sharding.py``; its mp peers the same one), ratio-reduces on
+the host once and tracks the best ``target_metric``. With ``eval.save``
+an evaluator gathers per-item rows in ``eval_results`` and ``record``
+writes every dp rank's, in dp order (the shards' order), to ``<exp_dir>/eval_results/<Evaluator>/results.json`` on
 rank 0 (JAX ``evaluator/build.py:64-73,109-111``)."""
 
 from __future__ import annotations

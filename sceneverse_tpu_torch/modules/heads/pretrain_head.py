@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sceneverse_tpu_torch.modules.build import HEADS_REGISTRY
+from sceneverse_tpu_torch.parallel import vocab
 from sceneverse_tpu_torch.utils.precision import LayerNorm
 
 
@@ -25,15 +26,22 @@ class BertPredictionHeadTransform(nn.Module):
 
 class BertLMPredictionHead(nn.Module):
     """transform -> decoder (no bias) + standalone bias, added in the
-    decoder's compute dtype as the JAX package does."""
+    decoder's compute dtype as the JAX package does. Over an mp group
+    (``parallel.mp`` > 1) ``parallel/vocab.py::split_heads`` may give it
+    its rows of the vocabulary (``vocab_shard``); it then returns the whole
+    logits, gathered over the group."""
 
     def __init__(self, hidden_size: int, vocab_size: int):
         super().__init__()
         self.transform = BertPredictionHeadTransform(hidden_size)
         self.decoder = nn.Linear(hidden_size, vocab_size, bias=False)
         self.bias = nn.Parameter(torch.zeros(vocab_size))
+        self.vocab_shard = None  # (mp rank, mp) once split
 
     def forward(self, x):
+        if self.vocab_shard is not None:
+            return vocab.head_logits(self.transform(x), self.decoder.weight,
+                                     self.bias)
         h = self.decoder(self.transform(x))
         return h + self.bias.to(h.dtype)
 

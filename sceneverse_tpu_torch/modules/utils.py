@@ -72,11 +72,13 @@ def set_generators(model: nn.Module, seed: int, device,
                    rank: int = 0) -> None:
     """Give every dropout of ``model`` one explicit device generator and
     every attention-seed stream one host generator, both from ``(seed,
-    rank)``: rank 0 draws as one process does, the other ranks of a
-    data-parallel world from streams of their own, so one rank's dropout
-    differs from a single process's over the same rows by design, as the
-    reference's per-rank streams do (and as the documented dropout
-    difference of JAX ``mha.py:41-44``)."""
+    rank)``, ``rank`` the dp rank: dp rank 0 draws as one process does, the
+    other dp ranks of a data-parallel world from streams of their own, so
+    one rank's dropout differs from a single process's over the same rows
+    by design, as the reference's per-rank streams do (and as the
+    documented dropout difference of JAX ``mha.py:41-44``). The ranks of an
+    mp group run the same replicated towers on the same rows and draw the
+    same masks, as JAX's one stream over the mesh does."""
     base = seed + 2_000_006 * rank
     dev = torch.Generator(device=device)
     dev.manual_seed(base)

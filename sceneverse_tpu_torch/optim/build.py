@@ -29,8 +29,13 @@ not optimised. Matches the JAX package's optax chain:
     resume inside a group continues exactly;
   * over a data-parallel world (``parallel/mesh.py``) each rank's gradient
     is that of its share of the global-batch loss, so the ranks' gradients
-    are summed, once per optimizer step (after the group's last micro-step
-    under ``accum``) and before the clip, as one flat all-reduce.
+    are summed over the dp group, once per optimizer step (after the
+    group's last micro-step under ``accum``) and before the clip, as one
+    flat all-reduce. With an mp group (``parallel.mp`` > 1) the replicated
+    gradients are then broadcast from the group's first rank, so the
+    replicas stay bit-equal, and the clip's squared norm counts them once
+    and sums the split LM head's rows over the group
+    (``parallel/vocab.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 from torch import nn
 
 from sceneverse_tpu_torch.optim.scheduler import get_schedule_fn
-from sceneverse_tpu_torch.parallel import mesh
+from sceneverse_tpu_torch.parallel import mesh, vocab
 
 
 def _no_decay(model: nn.Module, name: str) -> bool:
@@ -126,12 +131,22 @@ class GPSOptimizer:
                 return False
             torch._foreach_copy_(grads, self.acc)
         mesh.all_reduce_flat(grads)
+        if mesh.mp_world() > 1:
+            split = [vocab.is_split(p) for p in self.params]
+            # the replicas take the mp group's first rank's gradient: mp
+            # peers compute it from the same rows and masks, but a CUDA
+            # backward with atomics may round it differently
+            mesh.broadcast_flat_mp(
+                [g for g, s in zip(grads, split) if not s])
         if self.grad_norm is not None:
             # optax clip_by_global_norm: g / ||g|| * max_norm when ||g|| >=
             # max_norm, else g unchanged (divide and multiply by 1); two
             # multi-tensor launches instead of a few per parameter
-            gnorm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            if mesh.mp_world() > 1:
+                gnorm = self._split_norm(grads, split)
+            else:
+                gnorm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads)))
             keep = gnorm < float(self.grad_norm)
             one = torch.ones_like(gnorm)
             torch._foreach_div_(grads, torch.where(keep, one, gnorm))
@@ -146,6 +161,23 @@ class GPSOptimizer:
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
         return True
+
+    @staticmethod
+    def _split_norm(grads, split) -> torch.Tensor:
+        """The global norm over an mp group: the replicated gradients'
+        squares counted once, plus the split gradients' squares summed over
+        the mp group (each rank holds its rows)."""
+        def sq(gs):
+            if not gs:
+                return grads[0].new_zeros((), dtype=torch.float32)
+            return torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(gs))).square()
+
+        rows = sq([g for g, s in zip(grads, split) if s])
+        if any(split):
+            rows = mesh.all_reduce_sum(rows, "mp")
+        return (sq([g for g, s in zip(grads, split) if not s])
+                + rows).sqrt()
 
     def state_dict(self):
         return {"opt": self.opt.state_dict(), "step_count": self.step_count,

@@ -82,7 +82,7 @@ class _BetweenBatchBase(nn.Module):
         ``b``, the positives on the diagonal of the global batch."""
         scale = self.logit_scale.clamp(max=100.0)
         n = a.shape[0]
-        labels = torch.arange(n, device=a.device) + mesh.rank() * n
+        labels = torch.arange(n, device=a.device) + mesh.dp_rank() * n
         ab = scale * (b @ mesh.all_gather_rows(a).t())
         ba = scale * (a @ mesh.all_gather_rows(b).t())
         return (share_mean(cross_entropy(ab, labels))

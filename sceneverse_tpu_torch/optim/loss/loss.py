@@ -49,12 +49,12 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
 def share_mean(x: torch.Tensor) -> torch.Tensor:
     """This rank's share of the mean of ``x`` over the global batch (every
     rank holds as many elements)."""
-    return x.mean() / mesh.world()
+    return x.mean() / mesh.dp_world()
 
 
 def global_rows(x: torch.Tensor) -> int:
     """The global batch of the rows of ``x``."""
-    return x.shape[0] * mesh.world()
+    return x.shape[0] * mesh.dp_world()
 
 
 def global_count(mask: torch.Tensor) -> torch.Tensor:

@@ -29,15 +29,20 @@ As in the JAX package:
     buffer of them in one copy (``DefaultTrainer``: every
     ``solver.log_every`` steps).
 
-Data parallelism (``parallel/mesh.py``; ``run_torch.py`` under torchrun):
-one trainer per process, on ``cuda:LOCAL_RANK`` unless ``device`` says
-otherwise. The global batch is ``dataloader.batchsize``, each rank loads
-its rows (``data/build.py``); rank 0's parameters and buffers are
-broadcast at start; each rank's losses are its shares of the global-batch
-losses and ``GPSOptimizer`` sums the gradients once per optimizer step,
-before the clip; the logged losses and train metrics are summed over the
-ranks inside the buffer ``flush_train_logs`` fetches, so a step adds no
-host sync. Rank 0 writes the log, the checkpoints and ``eval.save``; the
+Data and vocabulary parallelism (``parallel/mesh.py``'s dp x mp grid,
+``parallel/vocab.py``; ``launch_torch.py`` / ``run_torch.py`` under
+torchrun): one trainer per process, on ``cuda:LOCAL_RANK`` unless
+``device`` says otherwise. The global batch is ``dataloader.batchsize``,
+each dp rank loads its rows (``data/build.py``; mp peers load the same
+rows); rank 0's parameters and buffers are broadcast at start; the
+dropout streams are seeded from the dp rank, so mp peers draw the same
+masks; each rank's losses are its dp shard's shares of the global-batch
+losses and ``GPSOptimizer`` sums the gradients over the dp group once per
+optimizer step, before the clip; the logged losses and train metrics are
+summed over the dp group inside the buffer ``flush_train_logs`` fetches,
+so a step adds no host sync. With mp > 1 the LM head is split over the mp
+group last, after the pretrain load and the resume, and checkpoints hold
+it whole. Rank 0 writes the log, the checkpoints and ``eval.save``; the
 ranks meet at a barrier after each checkpoint write (rank 0 then writes
 synchronously), and every rank resumes from the same file.
 
@@ -66,7 +71,7 @@ from sceneverse_tpu_torch.model import build_model
 from sceneverse_tpu_torch.modules.utils import set_generators
 from sceneverse_tpu_torch.optim.build import GPSOptimizer
 from sceneverse_tpu_torch.optim.loss.loss import Loss
-from sceneverse_tpu_torch.parallel import mesh
+from sceneverse_tpu_torch.parallel import mesh, vocab
 from sceneverse_tpu_torch.registry import Registry
 from sceneverse_tpu_torch.utils.logger import MetricsLogger
 from sceneverse_tpu_torch.utils.profiling import (install_nan_checks,
@@ -118,7 +123,7 @@ def _scalar(v, device) -> torch.Tensor:
 class BaseTrainer:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
-        mesh.check_cfg(cfg)
+        mesh.setup_grid(cfg)
         self.device = torch.device(
             device or cfg.get("device")
             or (f"cuda:{mesh.local_rank()}" if mesh.world() > 1 else "cuda"))
@@ -145,7 +150,7 @@ class BaseTrainer:
         self.model = build_model(
             cfg, generator=torch.Generator().manual_seed(self.seed)
         ).to(self.device)
-        set_generators(self.model, self.seed, self.device, mesh.rank())
+        set_generators(self.model, self.seed, self.device, mesh.dp_rank())
         if cfg.select("debug.nans", False):
             install_nan_checks(self.model)
         self.loss = Loss(cfg).to(self.device)
@@ -171,6 +176,9 @@ class BaseTrainer:
         self.resumed_from = None
         if cfg.get("resume", False):
             self.resume()
+        # the vocabulary split LAST, as JAX places its state last: the
+        # pretrain load and the resume read whole heads
+        self.vocab_split = vocab.split_heads(self.model, self.optimizer)
 
     def autocast(self):
         return torch.autocast(self.device.type, dtype=self.amp_dtype or
@@ -237,7 +245,7 @@ class BaseTrainer:
                 _scalar(cell(vals.get(k, nan), part), self.device)
                 for k in keys]) for _, vals, _ in pending])
 
-        if mesh.world() == 1:
+        if mesh.dp_world() == 1:
             host = column(0).cpu().numpy()
         else:
             both = torch.stack([column(0), column(1)])
@@ -266,11 +274,13 @@ class BaseTrainer:
 
     def _ckpt_state(self) -> dict:
         """No random state (JAX ``trainer/build.py:621-634``): the streams
-        start again from ``rng_seed`` on restore."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "tracker": self.exp_tracker.state_dict(),
-                "global_step": self.global_step}
+        start again from ``rng_seed`` on restore. A head split over the mp
+        group is gathered whole, with its optimizer state."""
+        return vocab.full_checkpoint(
+            {"model": self.model.state_dict(),
+             "optimizer": self.optimizer.state_dict(),
+             "tracker": self.exp_tracker.state_dict(),
+             "global_step": self.global_step}, self.model, self.optimizer)
 
     def save(self, name: str):
         """An asynchronous save to ``ckpt_path / name``
@@ -300,7 +310,7 @@ class BaseTrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.exp_tracker.load_state_dict(state["tracker"])
         self.global_step = int(state["global_step"])
-        set_generators(self.model, self.seed, self.device, mesh.rank())
+        set_generators(self.model, self.seed, self.device, mesh.dp_rank())
         gen = getattr(self.data_loaders.get("train"), "generator", None)
         if gen is not None:  # the materialized loader seeds each epoch
             gen.manual_seed(self.seed)

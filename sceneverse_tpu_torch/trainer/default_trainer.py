@@ -62,7 +62,7 @@ class DefaultTrainer(BaseTrainer):
                 # over a data-parallel world the (value, count) pairs, which
                 # flush_train_logs sums over the ranks
                 metrics = evaluator.batch_metrics(
-                    {**batch, **out}, include_count=mesh.world() > 1)
+                    {**batch, **out}, include_count=mesh.dp_world() > 1)
                 self.global_step += 1
                 pending.append((self.global_step, {**losses, **metrics}, t0))
                 if len(pending) >= log_every:

@@ -3,7 +3,8 @@ of 1: ``sceneverse_tpu_torch/data/sharding.py`` against the JAX package's
 over a grid of (n, world, pad), the port's copy of each
 ``tests/test_eval_sharding.py`` case, and ``parallel/mesh.py`` without a
 process group (every collective the identity, ``rank_rows``,
-``init_from_env`` with no torchrun variables, ``parallel.mp`` refused).
+``init_from_env`` with no torchrun variables, ``parallel.mp`` > 1 refused
+without a process group).
 The two-process runs are in ``tests/test_torch_ddp.py``."""
 
 import numpy as np
@@ -142,9 +143,12 @@ def test_rank_rows_raise_when_the_batch_does_not_divide():
 
 
 def test_model_parallel_axis_is_refused():
-    mesh.check_cfg(Config({"parallel": {"mp": 1}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.check_cfg(Config({"parallel": {"mp": 2}}))
+    """mp = 1 needs no process group; mp = 2 in a world of 1 raises (the
+    grids over process groups are tests/test_torch_mp.py's)."""
+    mesh.setup_grid(Config({"parallel": {"mp": 1}}))
+    assert (mesh.mp_world(), mesh.dp_world()) == (1, 1)
+    with pytest.raises(ValueError, match="process group"):
+        mesh.setup_grid(Config({"parallel": {"mp": 2}}))
 
 
 def test_misc_helpers_in_one_process(tmp_path):

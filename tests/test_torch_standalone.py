@@ -25,8 +25,9 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "sceneverse_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(REPO, f) for f in
-       ("run_torch.py", "chip_smoke.py", "profile_torch.py",
-        "sa_train_spread.py", "visualize_data_torch.py")])
+       ("run_torch.py", "launch_torch.py", "chip_smoke.py",
+        "profile_torch.py", "sa_train_spread.py",
+        "visualize_data_torch.py")])
 CONFIGS = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "configs", "final", "**", "*.yaml"),
