@@ -24,6 +24,18 @@ Phases (any failure exits non-zero; nothing is caught):
      nearest-vertex search against ``cKDTree`` (index differences must be
      exact ties); no port kernel launched. Prints each processor's device
      pass and whole time on each device.
+  2c. tools (``phase_tools``): the port's five measuring tools, each in
+     its own process at a small setting, all at once (TOOL_RUNS: latency at
+     batch 1 and 8, towers at batch 8, the pipeline tool for 2 steps on a
+     1-scan fixture, the scale drill at 200 scans and 3 steps, caplen on
+     the fixture): every expected line parses, names this card (name,
+     power limit, NVIDIA driver, CUDA and torch versions) and holds finite
+     positive values; the latency and towers tools' model and the
+     pipeline tool's trainer launch ``fps``, ``sa_group_mlp_pool`` and
+     ``mha_fwd`` (and ``mha_bwd``); the pipeline tool times the copy from
+     pageable and pinned memory; meanwhile this process rebuilds the
+     latency tool's model from its seed into a trainer (``mode=test``, bf16)
+     whose ``forward`` argmax at batch 8 must equal the tool's.
   3. kernels: each hand-written kernel against its plain PyTorch twin on the
      card at the GPS pretrain shapes (f32 and bf16 where the path has both),
      with CUDA-event times of kernel, twin and, where one PyTorch call
@@ -4566,6 +4578,179 @@ def phase_preprocess(card):
     return out
 
 
+# ------------------------------------------------------------------ tools
+TOOLS_DIR = os.path.join(REPO, "build", "smoke_tools")
+# each tool at a small setting: the command and the metrics it must print
+TOOL_RUNS = {
+    "latency": (["bench_latency_torch.py", "--batches", "1,8", "--warmup",
+                 "2", "--iters", "5"], {"gps_grounding_latency"}),
+    "towers": (["bench_towers_torch.py", "--batch", "8", "--reps", "2"],
+               {"gps_tower_device_ms"}),
+    "pipeline": (["bench_pipeline_torch.py", "--steps", "2",
+                  "--fixture-scans", "1", "--reps", "2"],
+                 {"item_build_scenes_per_sec_per_core",
+                  "materialized_feed_scenes_per_sec",
+                  "loader_collate_scenes_per_sec",
+                  "h2d_batch_transfer_mb_per_sec",
+                  "trainer_loop_scenes_per_sec", "eval_loop_scenes_per_sec"}),
+    "scale": (["bench_scale_torch.py", "--scans", "200", "--steps", "3",
+               "--root", os.path.join(TOOLS_DIR, "scale")],
+              {"scale_fixture_write", "scale_scanbase_full_load",
+               "scale_store_build", "scale_store_open",
+               "scale_feed_scenes_per_sec", "scale_feed_dp8_scenes_per_sec"}),
+    "caplen": (["bench_caplen_torch.py"], {"scene_cap_token_length"}),
+}
+TOWERS = ("lang_fused_2B", "lang_txt_only", "lang_cap_only", "vision_tower",
+          "pointnet_backbone", "unified_encoder", "pretrain_head")
+# the frozen eval path's kernels, which the latency and towers tools' model
+# and the pipeline tool's trainer launch
+TOOL_KERNELS = ("fps", "sa_group_mlp_pool", "mha_fwd")
+TOOLS_TIMEOUT_S = 400
+
+
+def _positive(tag, rec, keys):
+    for k in keys:
+        v = rec[k]
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"[tools] {tag}: {k} = {v!r} is not a "
+                                 f"finite positive number: {rec}")
+
+
+def _check_tool(name, lines, card):
+    """Every expected line is there, parses, names this card and holds
+    finite positive values; the kernels of the path launched."""
+    metrics = {r["metric"] for r in lines}
+    if metrics != TOOL_RUNS[name][1]:
+        raise AssertionError(f"[tools] {name} printed {sorted(metrics)}, "
+                             f"expected {sorted(TOOL_RUNS[name][1])}")
+    for r in lines:
+        dev = r["device"]
+        if not ("H100" in dev["name"] and card.startswith(dev["name"])
+                and dev["power_limit"] in card and dev["driver"]
+                and dev["cuda"] and dev["torch"]
+                and dev["clock"] == "cuda_events"):
+            raise AssertionError(f"[tools] {name}: device record {dev} does "
+                                 f"not name this card ({card})")
+        tag = f"{name} {r['metric']}"
+        if name == "latency":
+            _positive(tag, r, ("p50_ms", "p90_ms", "device_ms_est",
+                               "device_ms_min", "device_ms_max"))
+            missing = [k for k in TOOL_KERNELS
+                       if not r["launches_per_call"].get(k)]
+            assert not missing, f"[tools] {tag}: no launch of {missing}"
+        elif name == "towers":
+            _positive(tag, r, TOWERS)
+            _positive(tag, r["min_ms"], TOWERS)
+            missing = [k for k in TOOL_KERNELS if not r["launches"].get(k)]
+            assert not missing, f"[tools] {tag}: no launch of {missing}"
+        elif name == "caplen":
+            _positive(tag, r, ("p50", "p90", "p95", "max", "n"))
+            assert 0 <= r["truncated_pct"] <= 100, r
+        else:
+            _positive(tag, r, ("value",))
+            if r["metric"] == "trainer_loop_scenes_per_sec":
+                _positive(tag, r, ("step_median_ms", "epoch_median_ms"))
+                missing = [k for k in TOOL_KERNELS + ("mha_bwd",)
+                           if not r["launches"].get(k)]
+                assert not missing, f"[tools] {tag}: no launch of {missing}"
+            if r["metric"] == "scale_feed_dp8_scenes_per_sec":
+                assert (r["dp"], r["rows_per_rank"]) == (8, 16), r
+                _positive(tag, r, ("h2d_median_ms", "rank_batch_mb"))
+    if name == "pipeline":
+        memories = sorted(r["memory"] for r in lines
+                          if r["metric"] == "h2d_batch_transfer_mb_per_sec")
+        assert memories == ["pageable", "pinned"], memories
+
+
+def trainer_argmax_batch8():
+    """``forward``'s og3d argmax of a trainer (the frozen slice's config at
+    the latency tool's bf16, ``mode=test``) holding the latency tool's
+    weights (its model rebuilt here from the same seed), on the tool's
+    batch-8 batch."""
+    import run_torch
+    from bench_latency_torch import NUM_OBJ, NUM_POINTS, SEQ_LEN, build
+    from sceneverse_tpu_torch.trainer.build import build_trainer, to_device
+    from sceneverse_tpu_torch.utils.gps_inputs import gps_batch, gps_cfg
+
+    trainer = build_trainer(run_torch.load_cfg(SLICE_ARGS + [
+        "mode=test", "rng_seed=0", "mixed_precision=bf16",
+        "data.synthetic_size=8", "dataloader.batchsize=8",
+        f"exp_dir={os.path.join(TOOLS_DIR, 'trainer')}"]))
+    tool_model = build(gps_cfg(), "cpu", seed=0)
+    trainer.model.load_state_dict(tool_model.state_dict(), strict=True)
+    del tool_model
+    batch = to_device(gps_batch(8, NUM_OBJ, NUM_POINTS, SEQ_LEN),
+                      trainer.device)
+    got = trainer.forward(batch)["og3d_logits"].argmax(-1).tolist()
+    del trainer
+    return got
+
+
+def phase_tools(card):
+    """The port's measuring tools (``bench_*_torch.py``), each in its own
+    process at a small setting, all five at once (the kernels are built),
+    while this process takes the trainer's argmax that the latency tool's
+    must equal; their lines checked."""
+    import shutil
+
+    t0 = time.time()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    env = dict(os.environ, SCENEVERSE_BENCH_FIXTURE=os.path.join(
+        TOOLS_DIR, "bench_fixture"))
+    procs = {}
+    for name, (argv, _) in TOOL_RUNS.items():
+        out = open(os.path.join(TOOLS_DIR, f"{name}.out"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(REPO, argv[0]), *argv[1:]],
+            cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT,
+            text=True), out)
+    results, seconds = {}, {}
+    try:
+        argmax = trainer_argmax_batch8()
+        argmax_s = time.time() - t0
+        while len(seconds) < len(procs):
+            if time.time() - t0 > TOOLS_TIMEOUT_S:
+                raise AssertionError(f"[tools] past {TOOLS_TIMEOUT_S} s: "
+                                     f"{sorted(set(procs) - set(seconds))}")
+            for name, (proc, _) in procs.items():
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.time() - t0
+            time.sleep(0.2)
+        for name, (proc, out) in procs.items():
+            out.seek(0)
+            text = out.read()
+            if proc.returncode != 0:
+                raise AssertionError(f"[tools] {name} exited "
+                                     f"{proc.returncode}:\n{text[-4000:]}")
+            results[name] = [json.loads(line) for line in text.splitlines()
+                             if line.startswith("{")]
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    for name, lines in results.items():
+        _check_tool(name, lines, card)
+        for r in lines:
+            short = {k: v for k, v in r.items()
+                     if k not in ("device", "argmax", "max")}
+            log(f"[tools] {name}: {json.dumps(short)}")
+    lat8 = next(r for r in results["latency"] if r["batch"] == 8)
+    if argmax != lat8["argmax"]:
+        raise AssertionError(f"[tools] latency argmax at batch 8 "
+                             f"{lat8['argmax']} != the trainer's {argmax}")
+    _free()
+    total = time.time() - t0
+    log(f"[tools] latency argmax at batch 8 {argmax} equals the trainer's "
+        f"forward ({argmax_s:.1f} s); tools done at "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} } s; phase "
+        f"{total:.1f} s")
+    return {"lines": results, "seconds": seconds, "argmax_s": argmax_s,
+            "phase_s": total, "argmax_batch8": argmax}
+
+
 def phase_trainer():
     """The trainer: remat, accumulation, the 80-step run with a resume at
     step 40, and the profile / NaN / eval.save switches."""
@@ -4584,6 +4769,7 @@ def main():
 
     phase_build()
     preprocess = phase_preprocess(card)
+    tools = phase_tools(card)
     table = Table()
     phase_sa(table)
     phase_sample_group(table)
@@ -4650,7 +4836,8 @@ def main():
                    "slices": slices, "entry": entry, "trainer": trainer,
                    "data": data, "finetune": finetune, "objcls": objcls,
                    "variants": variants, "ddp": ddp, "mp": mp,
-                   "preprocess": preprocess, "card": card}, f,
+                   "preprocess": preprocess, "tools": tools, "card": card},
+                  f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

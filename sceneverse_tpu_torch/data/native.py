@@ -1,11 +1,12 @@
-"""ctypes bridge to the native batch-assembly library (native/batchops.cpp).
+"""ctypes bridge to the native batch-assembly library (csrc/batchops.cpp).
 
 The port's own copy of ``sceneverse_tpu/data/native.py``, with two
 differences:
 
-  * the library is compiled with g++ on first use into
-    ``build/native/libbatchops-<source hash>.so`` (``build/`` is git-ignored);
-    ``native/`` is only read;
+  * the library is compiled with g++ on first use from the port's own copy
+    of the C++ source, ``sceneverse_tpu_torch/csrc/batchops.cpp``, into
+    ``build/native/libbatchops-<source hash>.so`` (``build/`` is
+    git-ignored);
   * a library that cannot be built raises ``RuntimeError`` with the
     compiler's message. The JAX package falls back to the numpy path there,
     which draws from another RNG stream; here ``data.args.native_loader``
@@ -27,7 +28,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
-SOURCE = REPO / "native" / "batchops.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "batchops.cpp"
 BUILD_DIR = REPO / "build" / "native"
 FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 

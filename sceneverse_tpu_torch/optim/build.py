@@ -26,7 +26,10 @@ not optimised. Matches the JAX package's optax chain:
     are; every ``accum``-th call clips that mean, takes the AdamW step at
     ``schedule(step_count)`` and clears it. ``step_count`` counts optimizer
     steps, and the state dict carries the mean and the micro-step, so a
-    resume inside a group continues exactly;
+    resume inside a group continues exactly. Over a dp group each rank's
+    mean is that of its share of the loss: the state dict holds their sum
+    over the group (the global batch's mean, as MultiSteps' state and a
+    world of 1 hold it), and a rank that loads it takes its 1 / dp share;
   * over a data-parallel world (``parallel/mesh.py``) each rank's gradient
     is that of its share of the global-batch loss, so the ranks' gradients
     are summed over the dp group, once per optimizer step (after the
@@ -180,8 +183,14 @@ class GPSOptimizer:
                 + rows).sqrt()
 
     def state_dict(self):
+        """Every rank calls it: inside a group the running mean is summed
+        over the dp group (a collective), into copies."""
+        acc = self.acc
+        if acc is not None and self.mini_step and mesh.dp_world() > 1:
+            acc = [a.clone() for a in acc]
+            mesh.all_reduce_flat(acc)
         return {"opt": self.opt.state_dict(), "step_count": self.step_count,
-                "mini_step": self.mini_step, "acc": self.acc}
+                "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
@@ -190,3 +199,7 @@ class GPSOptimizer:
         acc = state.get("acc")
         self.acc = (None if acc is None else
                     [a.to(p.device, p.dtype) for a, p in zip(acc, self.params)])
+        if self.acc is not None and mesh.dp_world() > 1:
+            # this rank's share of the global mean: the group's last
+            # micro-step sums the shares back over dp
+            torch._foreach_div_(self.acc, float(mesh.dp_world()))

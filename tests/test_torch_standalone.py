@@ -6,6 +6,7 @@ what the JAX package's give, and its trainer never falls back to the CPU.
 import ast
 import glob
 import os
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +21,10 @@ from sceneverse_tpu_torch.config import load_config, save_config
 from sceneverse_tpu_torch.data.build import get_dataset, numpy_collate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's counterparts of the JAX package's bench_*.py tools
+TOOLS = ("bench_latency_torch.py", "bench_towers_torch.py",
+         "bench_pipeline_torch.py", "bench_scale_torch.py",
+         "bench_caplen_torch.py")
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "sceneverse_tpu_torch", "**", "*.py"),
@@ -27,7 +32,7 @@ PORT_FILES = sorted(
     + [os.path.join(REPO, f) for f in
        ("run_torch.py", "launch_torch.py", "chip_smoke.py",
         "profile_torch.py", "sa_train_spread.py",
-        "visualize_data_torch.py")])
+        "visualize_data_torch.py") + TOOLS])
 CONFIGS = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "configs", "final", "**", "*.yaml"),
@@ -51,6 +56,81 @@ def _imported(path: str) -> list:
 def test_port_file_imports_no_jax_and_no_jax_package(path):
     bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
     assert bad == [], bad
+
+
+# top-level entries of the repository the port must not read from
+JAX_SIDE = ("native", "sceneverse_tpu")
+
+
+def _path_parts(node) -> list | None:
+    """The operands of a path expression (``a / "b" / "c"``,
+    ``os.path.join(a, "b")``, ``Path(a, "b")``), else None."""
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+        left = _path_parts(node.left)
+        return (left if left is not None else [node.left]) + [node.right]
+    if isinstance(node, ast.Call):
+        f = node.func
+        name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+        if name in ("join", "Path", "PurePath") and node.args:
+            return list(node.args)
+    return None
+
+
+def _jax_side_paths(path: str, root: str = REPO) -> list:
+    """String constants of a port file that name a path under ``native/``
+    or ``sceneverse_tpu/``: a literal ``native/...`` (a ``file:line``
+    citation of a JAX source is not a path), or a path expression whose
+    first constant segment after its root is one of them. Docstrings are
+    prose and not looked at."""
+    tree = ast.parse(open(os.path.join(root, path)).read(), path)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                              ast.AsyncFunctionDef)) and n.body
+            and isinstance(n.body[0], ast.Expr)}
+    inner = {id(n.left) for n in ast.walk(tree)  # a chain's own links
+             if isinstance(n, ast.BinOp) and isinstance(n.op, ast.Div)}
+    bad = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs and "/" in node.value
+                and node.value.split("/")[0] in JAX_SIDE
+                and not re.search(r":\d+(-\d+)?$", node.value)):
+            bad.append(node.value)
+        parts = None if id(node) in inner else _path_parts(node)
+        if parts and not isinstance(parts[0], ast.Constant):
+            consts = [p.value for p in parts[1:]
+                      if isinstance(p, ast.Constant)
+                      and isinstance(p.value, str)]
+            if consts and consts[0].split("/")[0] in JAX_SIDE:
+                bad.append("/".join(consts))
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_names_no_path_of_the_jax_side(path):
+    """The port reads nothing under ``native/`` or ``sceneverse_tpu/``: the
+    native loader builds the port's own ``csrc/batchops.cpp``."""
+    assert _jax_side_paths(path) == []
+
+
+def test_the_path_check_sees_a_path_into_native(tmp_path):
+    from sceneverse_tpu_torch.data import native
+
+    (tmp_path / "probe.py").write_text(
+        'SOURCE = REPO / "native" / "batchops.cpp"\n'
+        'A = os.path.join(REPO, "sceneverse_tpu", "x.py")\n'
+        'B = "sceneverse_tpu/ops/pallas/mha.py:365"\n'
+        'C = REPO / "build" / "native"\n'
+        'D = "native/libbatchops.so"\n')
+    assert _jax_side_paths("probe.py", str(tmp_path)) == [
+        "native/batchops.cpp", "sceneverse_tpu/x.py",
+        "native/libbatchops.so"]
+    port = os.path.join(REPO, "sceneverse_tpu_torch")
+    assert str(native.SOURCE).startswith(port + os.sep)
+    # the copy's code is the JAX side's, byte for byte, below its header
+    body = lambda b: b[b.index(b"#include"):]
+    with open(os.path.join(REPO, "native", "batchops.cpp"), "rb") as f:
+        assert body(native.SOURCE.read_bytes()) == body(f.read())
 
 
 def test_the_import_check_sees_every_port_file():
@@ -81,6 +161,7 @@ def test_the_import_check_sees_every_port_file():
     assert set(finetune) <= set(PORT_FILES)
     assert set(objcls) <= set(PORT_FILES)
     assert set(tools) <= set(PORT_FILES)
+    assert set(TOOLS) <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", CONFIGS)

@@ -15,6 +15,9 @@
   3. A save and resume inside a group (3 micro-steps an epoch, k = 2)
      restores the running mean and the micro-step, and the next micro-step
      completes the group exactly as the uninterrupted trainer does.
+  4. The same over two gloo ranks (dp 2, ``tests/_torch_accum_worker.py``):
+     the file holds the global batch's running mean, and the resumed
+     group ends where the uninterrupted one does.
 """
 
 import numpy as np
@@ -227,3 +230,61 @@ def test_resume_inside_a_group_continues_exactly(tmp_path):
     for i, st in sa["state"].items():
         for k, v in st.items():
             assert torch.equal(v, sb["state"][i][k]), (i, k)
+
+
+def test_resume_inside_a_group_over_two_ranks_continues_exactly(tmp_path):
+    """Two gloo ranks (dp 2), k = 2: a checkpoint written after one
+    micro-step of a group holds the global batch's running mean (the sum of
+    the ranks' means, within 1e-5 relative of the world of 1's), and a run
+    resumed from it ends the group with the parameters of the
+    uninterrupted run within 1e-6 (the same f32 sums in another order; one
+    update moves a parameter by about lr = 5e-4). Before the repair every
+    rank resumed with rank 0's own mean, and the dp sum doubled it."""
+    import multiprocessing
+
+    import _torch_accum_worker as W
+
+    ctx = multiprocessing.get_context("spawn")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SCENEVERSE_FUSED_MHA", "off")
+        procs = [ctx.Process(target=W.run, args=(r, W.WORLD,
+                                                 str(tmp_path / "init"),
+                                                 str(tmp_path)))
+                 for r in range(W.WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            one = W.interrupted(tmp_path / "w1")
+        finally:
+            for p in procs:
+                p.join(240)
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+    assert [p.exitcode for p in procs] == [0] * W.WORLD
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+             for r in range(W.WORLD)]
+    assert [r["world"] for r in ranks] == [(2, 0), (2, 1)]
+    rel = 1e-5
+    for i, want in enumerate(one["saved"]):
+        summed = ranks[0]["own"][i] + ranks[1]["own"][i]
+        for r in ranks:  # every rank's copy of the file
+            assert torch.equal(r["saved"][i], ranks[0]["saved"][i]), i
+        got = ranks[0]["saved"][i]
+        assert torch.allclose(got, summed, rtol=0, atol=1e-7), i
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= rel * scale + 1e-9, i
+    # the two ranks' own means differ: rank 0's alone would not do
+    assert any(not torch.allclose(x, y, rtol=0, atol=1e-6) for x, y in
+               zip(ranks[0]["own"], ranks[1]["own"]))
+    moved = 0
+    for r in ranks:
+        assert r["steps"] == [(2, 0), (2, 0)]
+        for n, pa in r["a"].items():
+            err = (r["b"][n] - pa).abs().max().item()
+            assert err <= 1e-6, (n, err)
+            moved += int(not torch.equal(pa, r["before"][n]))
+    assert moved > 0
+    for n, pa in ranks[0]["a"].items():  # the ranks hold one model
+        assert torch.equal(pa, ranks[1]["a"][n]), n
