@@ -1120,6 +1120,9 @@ def check_mha(table, label, dname, q, k, v, pad, sw, locs, do, H, scale,
 
     B, L, D = q.shape
     T, dh = k.shape[1], D // H
+    if seed is not None and not torch.is_tensor(seed):
+        # the kernels read it from device memory
+        seed = torch.tensor([seed], device=q.device)
     args = (q, k, v, pad, sw, locs, H, scale, rate, seed)
     o, lse = mha.mha_fwd(*args)
     o2, lse2 = mha.mha_fwd(*args)
@@ -1980,6 +1983,23 @@ def eval_loaders(trainer, split):
     return loaders if isinstance(loaders, list) else [loaders]
 
 
+@contextlib.contextmanager
+def eager_eval(trainer):
+    """The val evaluators on the eager loop (``update`` per batch), whose
+    ``trainer.forward`` an oracle may replace: the fused eval replays the
+    graphs of the model's own forward."""
+    evs = trainer._val_evaluator()
+    evs = list({id(e): e for e in (evs if isinstance(evs, list)
+                                   else [evs])}.values())
+    for ev in evs:
+        ev.JIT_METRICS = False
+    try:
+        yield
+    finally:
+        for ev in evs:
+            del ev.JIT_METRICS
+
+
 def check_eval(tag, trainer):
     """What the trained model picks on the val split, and the evaluator on
     oracle logits. First the model's forward over the val loader: how often
@@ -2041,7 +2061,8 @@ def check_eval(tag, trainer):
     # the run's metrics log is closed: the oracle pass writes no row
     trainer.forward, trainer.log = oracle, lambda *a, **k: None
     try:
-        res = trainer._eval_loop("val", "val")[1]
+        with eager_eval(trainer):
+            res = trainer._eval_loop("val", "val")[1]
     finally:
         del trainer.forward, trainer.log
     want = {k: 1.0 for k in res if k not in ("target_metric", "best_result")}
@@ -2518,7 +2539,8 @@ def check_finetune_eval(tag, trainer, head):
     # the run's metrics log is closed: the oracle pass writes no row
     trainer.forward, trainer.log = oracle, lambda *a, **k: None
     try:
-        res = trainer._eval_loop("val", "val")[1]
+        with eager_eval(trainer):
+            res = trainer._eval_loop("val", "val")[1]
     finally:
         del trainer.forward, trainer.log
     n = seen["items"]
@@ -2935,7 +2957,8 @@ def objcls_oracle(trainer):
 
     trainer.forward, trainer.log = oracle, lambda *a, **k: None
     try:
-        res = trainer._eval_loop("val", "val")[1]
+        with eager_eval(trainer):
+            res = trainer._eval_loop("val", "val")[1]
     finally:
         del trainer.forward, trainer.log
     log(f"[objcls] val on oracle logits: {res}")
@@ -4751,6 +4774,295 @@ def phase_tools(card):
             "phase_s": total, "argmax_batch8": argmax}
 
 
+# phase_graphs: K steps a CUDA graph replay against single eager steps
+GRAPH_K = 4
+GRAPH_BATCHES = 12  # chunk 1 runs eagerly (the warm-up), 2 and 3 replay
+GRAPH_ACCUM = (2, 3)  # gradient_accumulation_steps k, steps_per_dispatch K
+GRAPH_EVAL_BATCHES = 4
+# eager against graphed from one saved state: relative L2 of all the
+# parameters, and each logged loss / train metric relative to max(1, |v|)
+GRAPH_TOL = 1e-6
+GRAPH_RUNS = {"frozen": ([], {}),
+              "unfrozen_fused": (["model.vision.args.freeze=False"],
+                                 FUSED_ENV)}
+
+
+def _graph_state(t):
+    """What a train step moves: parameters and buffers, the optimizer, the
+    dropout and attention-seed generators."""
+    import copy
+
+    from sceneverse_tpu_torch.modules.utils import _streams
+
+    return ({k: v.detach().clone() for k, v in t.model.state_dict().items()},
+            copy.deepcopy(t.optimizer.state_dict()),
+            [g.get_state() for g in _streams(t.model)])
+
+
+def _graph_restore(t, state):
+    from sceneverse_tpu_torch.modules.utils import _streams
+
+    model, opt, gens = state
+    t.model.load_state_dict(model)
+    t.optimizer.load_state_dict(opt)
+    for g, st in zip(_streams(t.model), gens):
+        g.set_state(st)
+    t._graphs = {}  # the optimizer's state tensors were replaced
+
+
+def _rows_k(metrics, losses):
+    out = {**losses, **metrics}
+    k = len(next(iter(out.values())))
+    return [{n: float(v[j]) for n, v in out.items()} for j in range(k)]
+
+
+def _graph_compare(tag, want_rows, got_rows, want_p, got_p):
+    num = sum(float((got_p[n].double() - w.double()).norm() ** 2)
+              for n, w in want_p.items())
+    den = sum(float(w.double().norm() ** 2) for w in want_p.values())
+    rel = (num / den) ** 0.5
+    worst = max(abs(g[n] - w[n]) / max(1.0, abs(w[n]))
+                for w, g in zip(want_rows, got_rows) for n in w)
+    log(f"[graphs {tag}] {len(got_rows)} steps: parameters rel L2 "
+        f"{rel:.3e}, rows worst {worst:.3e} (tol {GRAPH_TOL:g})")
+    if not (len(want_rows) == len(got_rows) and rel <= GRAPH_TOL
+            and worst <= GRAPH_TOL and math.isfinite(rel)):
+        raise AssertionError(f"graphs {tag}: eager and graphed runs differ "
+                             f"(params {rel}, rows {worst})")
+    return {"param_rel_l2": rel, "rows_worst": worst}
+
+
+def _graph_params(t):
+    return {n: p.detach().clone() for n, p in t.model.named_parameters()}
+
+
+def graph_equivalence(name, extra, env, accum=None):
+    """From one saved state, GRAPH_BATCHES eager micro-steps against the same
+    batches through ``train_forward_backward_k`` (chunk 1 eager, then
+    replays), with the train metrics in the step; then two replays on one
+    chunk must draw other masks; the step's CUDA-event ms eager and graphed
+    and the peak memory at K = 1 and K; one H2D copy per chunk."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import _build
+
+    k_acc, K = accum or (1, GRAPH_K)
+    over = extra + [f"data.synthetic_size={32 * GRAPH_BATCHES + 8}",
+                    f"solver.steps_per_dispatch={K}",
+                    f"solver.gradient_accumulation_steps={k_acc}"]
+    tag = name + (f" k={k_acc} K={K}" if accum else f" K={K}")
+    with gates(env):
+        t = _trainer(f"graphs_{name}{'_accum' if accum else ''}", over)
+        hosts = [b for _, b in zip(range(GRAPH_BATCHES),
+                                   t.data_loaders["train"])]
+        fused = t._fusable_metrics(t._train_evaluator())
+        if fused is None:
+            raise AssertionError(f"graphs {tag}: train metrics do not fuse")
+        state = _graph_state(t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def eager_run():
+            rows = []
+            for h in hosts:
+                m, l = t.train_forward_backward(t.device_batch(h), fused)
+                rows.append({n: float(v) for n, v in {**l, **m}.items()})
+            return rows
+
+        eager = eager_run()
+        torch.cuda.synchronize()
+        peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
+        want_p = _graph_params(t)
+        spread = None
+        if name == "frozen" and not accum:
+            # the eager run against itself: what the comparison resolves
+            _graph_restore(t, state)
+            spread = _graph_compare(tag + " eager twice", eager, eager_run(),
+                                    want_p, _graph_params(t))
+        _graph_restore(t, state)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        graphed = []
+        for c in range(0, GRAPH_BATCHES, K):
+            graphed += _rows_k(*t.train_forward_backward_k(hosts[c:c + K],
+                                                           fused))
+        torch.cuda.synchronize()
+        peak_k = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(_build.LAUNCHES)
+        n_graphs = sum(g is not None for g in t._graphs.values())
+        if n_graphs != (2 if accum else 1):
+            raise AssertionError(f"graphs {tag}: {n_graphs} graphs captured")
+        res = _graph_compare(tag, eager, graphed, want_p, _graph_params(t))
+        res.update(peak_gib_k1=peak1, peak_gib_k=peak_k, launches=launches,
+                   graphs=n_graphs, eager_twice=spread)
+        if accum:
+            if t.optimizer.step_count != GRAPH_BATCHES // k_acc:
+                raise AssertionError(f"graphs {tag}: "
+                                     f"{t.optimizer.step_count} updates")
+            del t
+            _free()
+            return res
+        # two replays on the same chunk: the masks advance
+        a = _rows_k(*t.train_forward_backward_k(hosts[:K], fused))
+        b = _rows_k(*t.train_forward_backward_k(hosts[:K], fused))
+        if a[0]["total_loss"] == b[0]["total_loss"]:
+            raise AssertionError(f"graphs {tag}: two replays drew one mask")
+        # the step's CUDA-event time, eager (K single steps) and graphed,
+        # with the default (atomic) algorithms: a new graph, warmed and
+        # captured outside the deterministic mode
+        torch.use_deterministic_algorithms(False)
+        try:
+            # all GRAPH_BATCHES batches a timed call, so that a batch's
+            # host work overlaps the card's work on the one before, as in
+            # the trainer's loop
+            chunks = [hosts[c:c + K] for c in range(0, GRAPH_BATCHES, K)]
+            t._graphs = {}
+            for _ in range(2):
+                t.train_forward_backward_k(hosts[:K], fused)
+            res["step_ms_eager"] = cuda_ms(lambda: [
+                t.train_forward_backward(t.device_batch(h), fused)
+                for h in hosts], reps=2) / GRAPH_BATCHES
+            res["step_ms_graphed"] = cuda_ms(lambda: [
+                t.train_forward_backward_k(c, fused) for c in chunks],
+                reps=2) / GRAPH_BATCHES
+            if name == "frozen":  # eval groups of K batches
+                fn = t._fusable_metrics(t._val_evaluator())
+                for _ in range(2):
+                    t.eval_metrics_k(hosts[:K], fn)
+                res["eval_ms_eager"] = cuda_ms(lambda: [
+                    fn({**b, **t.forward(b)}, include_count=True)
+                    for b in map(t.device_batch, hosts)],
+                    reps=2) / GRAPH_BATCHES
+                res["eval_ms_graphed"] = cuda_ms(lambda: [
+                    t.eval_metrics_k(c, fn) for c in chunks],
+                    reps=2) / GRAPH_BATCHES
+        finally:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        # packed transfer: the chunk's arrays in one host-to-device copy
+        # (every copy_ from the host to the card counted; the profiler is
+        # not used here: a replay under its CUPTI trace crashed the process)
+        copies = []
+        real_copy = torch.Tensor.copy_
+
+        def counted(dst, src, *a, **kw):
+            if dst.is_cuda and not src.is_cuda:
+                copies.append(dst.numel() * dst.element_size())
+            return real_copy(dst, src, *a, **kw)
+
+        torch.Tensor.copy_ = counted
+        try:
+            t.train_forward_backward_k(hosts[:K], fused)
+        finally:
+            torch.Tensor.copy_ = real_copy
+        st = next(iter(t._staging.values()))
+        res["h2d_copies"] = len(copies)
+        res["h2d_mb"] = sum(copies) / 1e6
+        res["h2d_ms"] = cuda_ms(lambda: st.dev.copy_(st.host[0],
+                                                     non_blocking=True))
+        torch.cuda.synchronize()  # the same copy on the host's clock
+        t0 = time.perf_counter()
+        for _ in range(5):
+            st.dev.copy_(st.host[0], non_blocking=True)
+        torch.cuda.synchronize()
+        res["h2d_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        if len(copies) != 1:
+            raise AssertionError(f"graphs {tag}: {len(copies)} H2D copies "
+                                 "in a chunk (packed transfer sends one)")
+        evals = (f"; eval batch {res['eval_ms_eager']:.3f} ms eager, "
+                 f"{res['eval_ms_graphed']:.3f} graphed"
+                 if "eval_ms_eager" in res else "")
+        log(f"[graphs {tag}] step {res['step_ms_eager']:.3f} ms eager, "
+            f"{res['step_ms_graphed']:.3f} ms graphed (CUDA events){evals}; peak "
+            f"{peak1:.2f} GiB at K=1, {peak_k:.2f} GiB at K={K}; one H2D "
+            f"copy of {res['h2d_mb']:.1f} MB a chunk, {res['h2d_ms']:.3f} "
+            f"ms ({res['h2d_host_ms']:.3f} on the host's clock); launches "
+            f"in the graphed run {launches}")
+        if name == "frozen":
+            res["eval"] = graph_eval(t)
+    del t
+    _free()
+    return res
+
+
+def _head(batch, n):
+    """The first ``n`` items of a host batch."""
+    B = len(batch["obj_fts"])
+
+    def cut(v):
+        if hasattr(v, "shape"):
+            return v[:n] if v.ndim and v.shape[0] == B else v
+        if isinstance(v, (list, tuple)) and len(v) == B:
+            return v[:n]
+        return v
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def graph_eval(t):
+    """GRAPH_EVAL_BATCHES val batches and an 8-item tail batch through the
+    fused eval (eval_steps_per_dispatch = 2: groups of 2, the tail its
+    own), twice (the first pass runs each group's first occurrence eagerly
+    and captures the second; the second pass replays every group, the tail
+    included), against the eager loop: ``record()`` equal."""
+    import torch
+
+    ev = t._val_evaluator()
+    t.eval_steps_per_dispatch = 2
+    full = [b for _, b in zip(range(GRAPH_EVAL_BATCHES),
+                              t.data_loaders["val"])]
+    real = t.data_loaders["val"]
+    # a tuple: one loader (a list would be a list of loaders)
+    t.data_loaders["val"] = tuple(full + [_head(full[0], 8)])
+    try:
+        ev.JIT_METRICS = False  # the instance takes the eager loop
+        t0 = time.time()
+        _, eager = t._eval_loop("val", "val")
+        t_eager = time.time() - t0
+        del ev.JIT_METRICS
+        t._graphs = {k: g for k, g in t._graphs.items() if k[0] != "eval"}
+        fused = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fused.append((t._eval_loop("val", "val")[1], time.time() - t0))
+    finally:
+        t.data_loaders["val"] = real
+    graphs = {dict((n, s) for n, s, _ in k[1])["obj_fts"][0]: g is not None
+              for k, g in t._graphs.items() if k[0] == "eval"}
+    log(f"[graphs eval] {GRAPH_EVAL_BATCHES} val batches + an 8-item tail: "
+        f"eager {t_eager:.3f} s, fused {fused[0][1]:.3f} s (eager first "
+        f"groups, captures), {fused[1][1]:.3f} s (replays) (host clock); "
+        f"graph captured by batch size {graphs}; record equal: "
+        f"{[f == eager for f, _ in fused]}")
+    if any(f != eager for f, _ in fused) or graphs != {32: True, 8: True}:
+        raise AssertionError(f"graphs eval: fused {fused} != eager {eager} "
+                             f"or graphs {graphs}")
+    return {"eager_s": t_eager, "fused_s": [x for _, x in fused],
+            "graphs": graphs}
+
+
+def phase_graphs():
+    """The JAX trainer's dispatch paths as CUDA graphs: frozen and
+    unfrozen_fused at full width (f32, dropout on), accumulation across
+    chunks, the fused eval with a tail batch, the packed transfer. Under
+    ``torch.use_deterministic_algorithms`` (warn only): the embedding and
+    gather backwards sum with atomics otherwise, and two eager runs from
+    one state then part by about 1e-6 a step (``phase_trainer``)."""
+    import torch
+
+    t0 = time.time()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {name: graph_equivalence(name, extra, env)
+               for name, (extra, env) in GRAPH_RUNS.items()}
+        out["accum"] = graph_equivalence("frozen", [], {}, accum=GRAPH_ACCUM)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["seconds"] = time.time() - t0
+    log(f"[graphs] phase {out['seconds']:.1f} s")
+    return out
+
+
 def phase_trainer():
     """The trainer: remat, accumulation, the 80-step run with a resume at
     step 40, and the profile / NaN / eval.save switches."""
@@ -4780,6 +5092,7 @@ def main():
               for name, (extra, _, env) in PATHS.items()}
     entry = phase_entry(slices["frozen_exact"])
     trainer = phase_trainer()
+    graphs = phase_graphs()
     data = phase_data(table)
     finetune = phase_finetune(table, data["run"]["exp_dir"])
     objcls = phase_objcls(table)
@@ -4788,6 +5101,8 @@ def main():
     mp = phase_mp(card)
     paths = {p: s["launches"] for p, s in slices.items()}
     paths["trainer"] = trainer["run"]["launches"]
+    for name in GRAPH_RUNS:
+        paths[f"graphs_{name}"] = graphs[name]["launches"]
     paths["data"] = data["run"]["launches"]
     paths["data_materialized"] = data["materialized"]["launches"]
     for name, run in finetune["runs"].items():
@@ -4834,6 +5149,7 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_shape": table.rows,
                    "slices": slices, "entry": entry, "trainer": trainer,
+                   "graphs": graphs,
                    "data": data, "finetune": finetune, "objcls": objcls,
                    "variants": variants, "ddp": ddp, "mp": mp,
                    "preprocess": preprocess, "tools": tools, "card": card},

@@ -211,6 +211,14 @@ __device__ __forceinline__ float sv_uniform01(uint32_t seed, uint32_t idx) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);
 }
 
+// The dropout seed lives in device memory (an int64 the caller's device
+// generator draws), so a CUDA graph that replays this launch draws a new
+// mask each replay; its low 32 bits are the hash's seed. Read only when
+// dropout is on (the pointer may be null otherwise).
+__device__ __forceinline__ uint32_t sv_seed(const long long* seed, float rate) {
+  return rate > 0.f ? (uint32_t)(unsigned long long)__ldg(seed) : 0u;
+}
+
 struct SvGate {
   float z, ls, loc;
 };
@@ -242,7 +250,7 @@ __global__ void __launch_bounds__(SV_THREADS, 2)
 sv_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ pad, const float* __restrict__ sw,
                   const float* __restrict__ locs, T* __restrict__ o, float* __restrict__ lse,
-                  int H, int L, int Tn, float scale, float rate, float inv_keep_t, int seed) {
+                  int H, int L, int Tn, float scale, float rate, float inv_keep_t, const long long* seed) {
   typedef SvFrag<T> F;
   constexpr int LDT = SvTile<T>::LD, TE = SV_KT * LDT;  // ring stage elements
   constexpr bool BF = !std::is_same<T, float>::value;
@@ -304,7 +312,7 @@ sv_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         // w owns row 8w + lane/4 and walks its keys 4 apart (conflict-free);
         // no branch on the row, so the quad's shuffles stay converged
         const float keep = 1.f - rate;
-        const uint32_t hseed = (uint32_t)seed + (uint32_t)bh;
+        const uint32_t hseed = sv_seed(seed, rate) + (uint32_t)bh;
         const int tq = lane & 3, rr = warp * 8 + (lane >> 2), r = r0 + rr;
         const bool live = r < L;
         float* srow = slab + rr * sld;
@@ -380,7 +388,7 @@ sv_mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ locs, const T* __restrict__ dout,
                      const T* __restrict__ o, const float* __restrict__ lse,
                      T* __restrict__ dq, float* __restrict__ dsw, float* __restrict__ delta,
-                     int H, int L, int Tn, float scale, float rate, float inv_keep_f, int seed) {
+                     int H, int L, int Tn, float scale, float rate, float inv_keep_f, const long long* seed) {
   typedef SvFrag<T> F;
   constexpr int LDT = SvTile<T>::LD, TE = SV_KT * LDT;
   constexpr bool BF = !std::is_same<T, float>::value;
@@ -425,7 +433,7 @@ sv_mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   for (int i = threadIdx.x; i < 64 * 6; i += SV_THREADS) gS[i] = 0.f;
   const float keep = 1.f - rate;
-  const uint32_t hseed = (uint32_t)seed + (uint32_t)bh;
+  const uint32_t hseed = sv_seed(seed, rate) + (uint32_t)bh;
   typename F::Acc acc[2];
   sv_zero(acc);
   const T* DSp = BF ? DSb : reinterpret_cast<const T*>(Ss);
@@ -524,7 +532,7 @@ sv_mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       const float* __restrict__ locs, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, int H, int L, int Tn, float scale,
-                      float rate, float inv_keep_t, float inv_keep_f, int seed) {
+                      float rate, float inv_keep_t, float inv_keep_f, const long long* seed) {
   typedef SvFrag<T> F;
   constexpr int LDT = SvTile<T>::LD, TE = SV_KT * LDT;
   constexpr bool BF = !std::is_same<T, float>::value;
@@ -551,7 +559,7 @@ sv_mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   sv_load_tile<SV_KT>(ring + TE, doh, D, 0, L);
   sv_cp_commit();
   const float keep = 1.f - rate;
-  const uint32_t hseed = (uint32_t)seed + (uint32_t)bh;
+  const uint32_t hseed = sv_seed(seed, rate) + (uint32_t)bh;
   typename F::Acc acc_k[2], acc_v[2];
   sv_zero(acc_k);
   sv_zero(acc_v);
@@ -668,8 +676,8 @@ static cudaError_t sv_smem_attr(K kernel, size_t bytes) {
 template <typename T>
 static int sv_fwd_launch(const void* q, const void* k, const void* v, const float* pad,
                          const float* sw, const float* locs, void* o, float* lse, int B, int H,
-                         int L, int Tn, float scale, float rate, float inv_keep_t, int seed,
-                         cudaStream_t st) {
+                         int L, int Tn, float scale, float rate, float inv_keep_t,
+                         const long long* seed, cudaStream_t st) {
   const size_t smem = sv_fwd_smem<T>(Tn);
   cudaError_t e = sv_smem_attr(sv_mha_fwd_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -684,7 +692,8 @@ static int sv_bwd_launch(const void* q, const void* k, const void* v, const floa
                          const float* sw, const float* locs, const void* dout, const void* o,
                          const float* lse, void* dq, void* dk, void* dv, float* dsw,
                          float* delta, int B, int H, int L, int Tn, float scale, float rate,
-                         float inv_keep_t, float inv_keep_f, int seed, cudaStream_t st) {
+                         float inv_keep_t, float inv_keep_f, const long long* seed,
+                         cudaStream_t st) {
   size_t smem = sv_dq_smem<T>();
   cudaError_t e = sv_smem_attr(sv_mha_bwd_dq_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -713,7 +722,7 @@ static int sv_bwd_launch(const void* q, const void* k, const void* v, const floa
 extern "C" int sv_mha_fwd(int bf16, int dh, const void* q, const void* k, const void* v,
                           const float* pad, const float* sw, const float* locs, void* o,
                           float* lse, int B, int H, int L, int Tn, float scale, float rate,
-                          float inv_keep_t, int seed, void* stream) {
+                          float inv_keep_t, const long long* seed, void* stream) {
   SV_DISPATCH(sv_fwd_launch, q, k, v, pad, sw, locs, o, lse, B, H, L, Tn, scale, rate,
               inv_keep_t, seed, (cudaStream_t)stream);
 }
@@ -723,7 +732,7 @@ extern "C" int sv_mha_bwd(int bf16, int dh, const void* q, const void* k, const 
                           const void* dout, const void* o, const float* lse, void* dq,
                           void* dk, void* dv, float* dsw, float* delta, int B, int H, int L,
                           int Tn, float scale, float rate, float inv_keep_t, float inv_keep_f,
-                          int seed, void* stream) {
+                          const long long* seed, void* stream) {
   SV_DISPATCH(sv_bwd_launch, q, k, v, pad, sw, locs, dout, o, lse, dq, dk, dv, dsw, delta, B,
               H, L, Tn, scale, rate, inv_keep_t, inv_keep_f, seed, (cudaStream_t)stream);
 }

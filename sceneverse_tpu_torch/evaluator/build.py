@@ -4,7 +4,13 @@
 sums every (value, count) over the dp group of a data-parallel world
 (JAX ``evaluator/build.py:48-53,105-107``: each dp rank evaluated its own
 shard, ``data/sharding.py``; its mp peers the same one), ratio-reduces on
-the host once and tracks the best ``target_metric``. With ``eval.save``
+the host once and tracks the best ``target_metric``. ``update_sums``
+takes (value, count) sums already reduced over a group of batches (the
+trainer's fused eval, ``trainer/build.py::eval_fused``). ``JIT_METRICS``
+marks an evaluator whose ``batch_metrics`` is tensor math with no host
+read, which the trainer may run inside a CUDA graph of its train step or
+eval group (JAX ``evaluator/build.py:60-63``); with ``eval.save`` it is not
+fused either, as in JAX. With ``eval.save``
 an evaluator gathers per-item rows in ``eval_results`` and ``record``
 writes every dp rank's, in dp order (the shards' order), to ``<exp_dir>/eval_results/<Evaluator>/results.json`` on
 rank 0 (JAX ``evaluator/build.py:64-73,109-111``)."""
@@ -32,6 +38,7 @@ def ratio_metrics(metrics: dict, floor: float = 1.0) -> dict:
 
 class BaseEvaluator:
     target_metric = "target_metric"
+    JIT_METRICS = False
 
     def __init__(self, cfg, **kwargs):
         self.cfg = cfg
@@ -51,15 +58,21 @@ class BaseEvaluator:
         raise NotImplementedError
 
     def update(self, data_dict):
-        for key, (value, count) in self.batch_metrics(
-                data_dict, include_count=True).items():
+        self.update_sums(self.batch_metrics(data_dict, include_count=True))
+
+    def update_sums(self, metrics):
+        """Accumulate (value, count) pairs: one batch's, or the sums of a
+        fused eval group (JAX ``evaluator/build.py:94-101``)."""
+        for key, (value, count) in metrics.items():
             acc = self.eval_dict.setdefault(key, [0.0, 0.0])
             acc[0] = acc[0] + value
             acc[1] = acc[1] + count
 
     def record(self):
-        sums = gather_dict({k: [float(v), float(c)]
-                            for k, (v, c) in self.eval_dict.items()})
+        keys = list(self.eval_dict)
+        host = _fetch([x for k in keys for x in self.eval_dict[k]])
+        sums = gather_dict({k: [host[2 * i], host[2 * i + 1]]
+                            for i, k in enumerate(keys)})
         out = {k: float(sums[k][0]) / max(float(sums[k][1]), 1.0)
                for k in self.eval_dict}
         if self.save:
@@ -74,6 +87,16 @@ class BaseEvaluator:
         out["best_result"] = self.best_result
         self.eval_dict = out
         return is_best, out
+
+
+def _fetch(values) -> list:
+    """Host floats of a list of device scalars and numbers, in one copy."""
+    dev = [v for v in values if torch.is_tensor(v)]
+    if not dev:
+        return [float(v) for v in values]
+    got = iter(torch.stack([v.detach().double().reshape(())
+                            for v in dev]).cpu().tolist())
+    return [next(got) if torch.is_tensor(v) else float(v) for v in values]
 
 
 def get_eval(name, cfg, **kwargs):

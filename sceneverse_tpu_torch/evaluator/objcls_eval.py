@@ -14,6 +14,7 @@ from sceneverse_tpu_torch.evaluator.build import (EVALUATOR_REGISTRY,
 
 @EVALUATOR_REGISTRY.register()
 class PretrainObjEval(BaseEvaluator):
+    JIT_METRICS = True
 
     target_metric = "accuracy"
 

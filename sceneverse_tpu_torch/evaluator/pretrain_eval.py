@@ -18,6 +18,7 @@ def _masked_acc(logits, labels, mask):
 
 @EVALUATOR_REGISTRY.register()
 class PretrainEval(BaseEvaluator):
+    JIT_METRICS = True
 
     def batch_metrics(self, data_dict, include_count=False):
         metrics = {}

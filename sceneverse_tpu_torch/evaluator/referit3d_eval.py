@@ -14,6 +14,7 @@ from sceneverse_tpu_torch.evaluator.common import (grounding_rows,
 
 @EVALUATOR_REGISTRY.register()
 class ReferIt3DEval(BaseEvaluator):
+    JIT_METRICS = True
     target_metric = "og_acc"
 
     def batch_metrics(self, data_dict, include_count=False):

@@ -31,6 +31,7 @@ def answer_hits(scores, labels):
 
 @EVALUATOR_REGISTRY.register()
 class ScanQAEval(BaseEvaluator):
+    JIT_METRICS = True
     target_metric = "ans1_acc"
 
     def __init__(self, cfg, **kwargs):
@@ -77,6 +78,8 @@ class ScanQAEval(BaseEvaluator):
 @EVALUATOR_REGISTRY.register()
 class ScanQAGenEval(ScanQAEval):
     """Free-form generation variant (reference :84-101)."""
+
+    JIT_METRICS = False  # string answers: host-side math
 
     def batch_metrics(self, data_dict, include_count=False):
         from sceneverse_tpu_torch.data.data_utils import clean_answer

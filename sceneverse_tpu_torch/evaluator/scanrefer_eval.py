@@ -19,6 +19,7 @@ from sceneverse_tpu_torch.evaluator.common import (grounding_rows,
 
 @EVALUATOR_REGISTRY.register()
 class ScanReferEval(BaseEvaluator):
+    JIT_METRICS = True
     target_metric = "og_acc_iou25"
 
     def batch_metrics(self, data_dict, include_count=False):

@@ -19,6 +19,7 @@ NUM_SQA_TYPES = 6  # 0: what, 1: is, 2: how, 3: can, 4: which, 5: others
 
 @EVALUATOR_REGISTRY.register()
 class SQA3DEval(BaseEvaluator):
+    JIT_METRICS = True
     target_metric = "ans1_acc"
 
     def __init__(self, cfg, **kwargs):

@@ -115,6 +115,16 @@ def _no_autocast(t: torch.Tensor):
     return torch.autocast(t.device.type, enabled=False)
 
 
+def _moment_sums(rows: torch.Tensor):
+    """(column sums (C,), Gram ``rows^T rows`` (C, C)) of rows (R, C),
+    accumulated in float64 and left there: a float64 sum of f32 terms
+    rounds to the same f32 in any order, so a rank split (whose partial
+    sums ``global_sums`` adds) or another CPU's blocking gives the same
+    moments."""
+    r = rows.double()
+    return r.sum(0), r.t() @ r
+
+
 class _BatchNorm(nn.Module):
     """``bn.bn`` nesting of the reference's BatchNorm2d wrapper."""
 
@@ -127,6 +137,7 @@ class _BatchNorm(nn.Module):
         variance (``torch.nn.BatchNorm1d`` would store the unbiased one)."""
         bn = self.bn
         with torch.no_grad():
+            mean, var = (t.to(bn.running_mean.dtype) for t in (mean, var))
             bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
             bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * var)
             bn.num_batches_tracked.add_(1)
@@ -136,7 +147,9 @@ class _BatchNorm(nn.Module):
 
         Train mode normalises with the batch's biased variance in flax's
         fast form, ``max(E[h^2] - E[h]^2, 0)``, over the rows of every
-        rank, and moves the running statistics by ``update_running``. Eval
+        rank, and moves the running statistics by ``update_running``. The
+        sums and the moments are taken in float64 and rounded once
+        (``_moment_sums``). Eval
         mode uses the running statistics. Moments and normalisation are f32
         whatever ``h`` is (flax's ``_compute_stats`` / ``_normalize``); the
         result is cast to ``bn_out_dtype``."""
@@ -147,9 +160,12 @@ class _BatchNorm(nn.Module):
             if bn.training:
                 rows = h32.reshape(-1, h32.shape[-1])
                 (s, q), n = mesh.global_sums(
-                    (rows.sum(0), (rows * rows).sum(0)), rows.shape[0])
+                    (rows.sum(0, dtype=torch.float64),
+                     (rows * rows).sum(0, dtype=torch.float64)),
+                    rows.shape[0])
                 mean = s / n
                 var = torch.clamp_min(q / n - mean * mean, 0.0)
+                mean, var = mean.to(h32.dtype), var.to(h32.dtype)
                 self.update_running(mean, var)
             else:
                 mean, var = bn.running_mean, bn.running_var
@@ -169,30 +185,52 @@ class ConvBNReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn is None:
             return torch.relu(self.conv(x))
-        if self.bn.bn.training and _bn_fold_enabled():
+        if not self.bn.bn.training:
+            return torch.relu(self.bn(self.conv(x)))
+        if _bn_fold_enabled():
             return self._folded(x)
-        return torch.relu(self.bn(self.conv(x)))
+        if torch.is_autocast_enabled(x.device.type):
+            return torch.relu(self.bn(self.conv(x)))
+        # train mode without autocast: the layer in float64, its output
+        # rounded once, for the reason ``_folded`` gives
+        xd = x.to(torch.promote_types(x.dtype, torch.float64))
+        h = torch.nn.functional.linear(xd, self.conv.weight.to(xd.dtype))
+        return torch.relu(self.bn(h)).to(_at_least_f32(x).dtype)
 
     def _folded(self, x: torch.Tensor) -> torch.Tensor:
         """The ``SCENEVERSE_BN_FOLD`` route (JAX ``pointnet.py:174-211``):
         the batch moments of ``conv(x)`` are exact functions of the input's
-        mean and Gram ``E[x x^T]`` (f32, full precision: TF32 must be off,
-        as ``Precision.HIGHEST`` is in JAX), so BatchNorm becomes a
-        per-channel affine in the conv's epilogue. The running statistics
-        move by flax's rule with this biased ``var_h``; the input moments
-        are over the rows of every rank."""
+        mean and Gram ``E[x x^T]`` (full precision: TF32 must be off, as
+        ``Precision.HIGHEST`` is in JAX), so BatchNorm becomes a per-channel
+        affine in the conv's epilogue. The running statistics move by
+        flax's rule with this biased ``var_h``; the input moments are over
+        the rows of every rank, summed in float64 (``_moment_sums``).
+
+        Without autocast the layer runs in float64 and rounds its output
+        once: its weight gradient is the difference of two row sums of
+        like size (the product's and the fold's, which takes the batch
+        mean back out), and in f32 the order of those sums (a rank split)
+        moved it by 2-3e-5 of its size (``tests/test_torch_ddp.py``, this
+        route and the literal one, which ``forward`` runs in float64 for
+        the same reason). Under a bf16 autocast the conv computes in bf16
+        from f32 moments."""
         bn = self.bn.bn
         out_dtype = bn_out_dtype(x)
+        wide = not torch.is_autocast_enabled(x.device.type)
         with _no_autocast(x):
-            xr = _at_least_f32(x.reshape(-1, x.shape[-1]))
-            (s, g), n = mesh.global_sums((xr.sum(0), xr.t() @ xr),
+            xr = x.reshape(-1, x.shape[-1])
+            xr = xr.double() if wide else _at_least_f32(xr)
+            (s, g), n = mesh.global_sums(_moment_sums(xr),
                                          xr.shape[0])
-            mu_in, gram = s / n, g / n
+            w = self.conv.weight.to(xr.dtype).t()
             a, b, mean_h, var_h = sa_train.fold_moments(
-                _at_least_f32(self.conv.weight.t()), mu_in, gram, bn.weight,
+                w, (s / n).to(xr.dtype), (g / n).to(xr.dtype), bn.weight,
                 bn.bias, bn.eps)
             self.bn.update_running(mean_h, var_h)
-        h = self.conv(x)  # compute dtype: bf16 under autocast
+            if wide:
+                y = torch.relu((xr @ w) * a + b)
+                return y.reshape(*x.shape[:-1], -1).to(out_dtype)
+        h = self.conv(x)  # bf16 under autocast
         with _no_autocast(x):
             return torch.relu(h * a + b).to(out_dtype)
 

@@ -56,23 +56,26 @@ class Dropout(nn.Module):
 
 
 class AttentionSeed(nn.Module):
-    """Draws the per-call int seed of the fused attention kernel's
-    in-kernel dropout from a host generator (no device sync)."""
+    """Draws the per-call seed of the fused attention kernel's in-kernel
+    dropout: a (1,) int64 tensor from a generator on the model's device
+    (``set_generators``), which the kernels read from device memory, so a
+    CUDA graph replays a new draw each time and no host value is read."""
 
     def __init__(self):
         super().__init__()
         self.seed_generator = None
 
-    def draw(self) -> int:
-        return int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=self.seed_generator))
+    def draw(self) -> torch.Tensor:
+        g = self.seed_generator
+        return torch.randint(0, 2 ** 31 - 1, (1,), generator=g,
+                             device=g.device if g is not None else None)
 
 
 def set_generators(model: nn.Module, seed: int, device,
                    rank: int = 0) -> None:
     """Give every dropout of ``model`` one explicit device generator and
-    every attention-seed stream one host generator, both from ``(seed,
-    rank)``, ``rank`` the dp rank: dp rank 0 draws as one process does, the
+    every attention-seed stream another, both from ``(seed, rank)``,
+    ``rank`` the dp rank: dp rank 0 draws as one process does, the
     other dp ranks of a data-parallel world from streams of their own, so
     one rank's dropout differs from a single process's over the same rows
     by design, as the reference's per-rank streams do (and as the
@@ -82,13 +85,13 @@ def set_generators(model: nn.Module, seed: int, device,
     base = seed + 2_000_006 * rank
     dev = torch.Generator(device=device)
     dev.manual_seed(base)
-    host = torch.Generator()
-    host.manual_seed(base + 1)
+    seeds = torch.Generator(device=device)
+    seeds.manual_seed(base + 1)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = dev
         elif isinstance(m, AttentionSeed):
-            m.seed_generator = host
+            m.seed_generator = seeds
 
 
 def _streams(module: nn.Module) -> list:
@@ -160,6 +163,11 @@ def remat(module: nn.Module, fn, *args, policy: str = "full"):
     functional keys."""
     if policy not in ("full", "dots"):
         raise ValueError(f"remat policy {policy!r}; valid: full, dots")
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        # the recompute sets the generators' states back to the tower's
+        # entry, which a capture cannot read or set
+        raise RuntimeError("model.remat does not run inside a CUDA graph: "
+                           "train it with solver.steps_per_dispatch=1")
     gens = _streams(module)
     entry = [g.get_state() for g in gens]
     stats = [t for m in module.modules()

@@ -54,7 +54,11 @@ to log 1e-6 at padded keys, probabilities rounded to v's dtype before the
 dropout mask and the PV product, and the dropout stream of
 ``_uniform01_hash`` (murmur3 finalizer over ``r*T + c`` with seed
 ``seed + b*H + h``), so kernel, plain twin and the JAX interpret mode draw
-the same mask.
+the same mask. The seed is a (1,) int64 tensor on the operands' device
+(``modules/utils.py::AttentionSeed`` draws it from a device generator),
+and the kernels read it from device memory: a CUDA graph that replays a
+launch then draws a new mask on every replay, where a seed passed by value
+would be frozen into the graph.
 """
 
 from __future__ import annotations
@@ -98,12 +102,13 @@ def fused_mha_supported(d_model: int, n_heads: int) -> bool:
 
 
 # --------------------------------------------------------------- plain twins
-def dropout_keep_mask(B, H, L, T, seed: int, keep: float, device):
+def dropout_keep_mask(B, H, L, T, seed: torch.Tensor, keep: float, device):
     """(B, H, L, T) bool keep-mask from the counter hash of the TPU kernel's
-    interpret mode (uint32 arithmetic carried in int64)."""
+    interpret mode (uint32 arithmetic carried in int64); ``seed`` a (1,)
+    int64 tensor on ``device``, read on the device."""
     M = 0xFFFFFFFF
     bh = torch.arange(B * H, device=device, dtype=torch.int64).view(B, H, 1, 1)
-    s = (seed + bh) & M
+    s = (seed.reshape(1, 1, 1, 1).to(torch.int64) + bh) & M
     r = torch.arange(L, device=device, dtype=torch.int64).view(1, 1, L, 1)
     c = torch.arange(T, device=device, dtype=torch.int64).view(1, 1, 1, T)
     x = (r * T + c + s * 0x9E3779B9) & M
@@ -205,11 +210,11 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fwd_fn = _build.bind(
             lib, "sv_mha_fwd",
-            [I, I, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F, I, P])
+            [I, I, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F, P, P])
         lib.bwd_fn = _build.bind(
             lib, "sv_mha_bwd",
             [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F,
-             F, F, I, P])
+             F, F, P, P])
         lib._bound = True
     return lib
 
@@ -265,9 +270,21 @@ def _inv_keep(rate, dtype):
     return float(torch.tensor(inv, dtype=dtype).float()), inv
 
 
+def _seed_ptr(seed, rate, q):
+    """The device address of the (1,) int64 seed; None without dropout."""
+    if rate <= 0.0:
+        return None
+    if not (torch.is_tensor(seed) and seed.is_cuda and seed.dtype == torch.int64
+            and seed.numel() == 1 and seed.device == q.device):
+        raise TypeError("mha: dropout needs its seed as a (1,) int64 tensor "
+                        f"on {q.device}, got {seed!r}")
+    return seed.data_ptr()
+
+
 def mha_fwd(q, k, v, padadd, sw, locs, n_heads: int, scale: float,
-            rate: float = 0.0, seed: int = 0):
-    """Fused attention forward: (o (B, L, D) in q.dtype, lse (B, H, L) f32)."""
+            rate: float = 0.0, seed: torch.Tensor | None = None):
+    """Fused attention forward: (o (B, L, D) in q.dtype, lse (B, H, L) f32).
+    ``seed`` is a (1,) int64 tensor on q's device when ``rate`` > 0."""
     if not q.is_cuda:
         return mha_fwd_plain(q, k, v, padadd, sw, locs, n_heads, scale, rate,
                              seed)
@@ -280,15 +297,16 @@ def mha_fwd(q, k, v, padadd, sw, locs, n_heads: int, scale: float,
         v.data_ptr(), padadd.data_ptr(), sw.data_ptr() if sw is not None else None,
         locs.data_ptr() if sw is not None else None, o.data_ptr(),
         lse.data_ptr(), B, n_heads, L, T, float(scale), float(rate), inv_t,
-        int(seed), _build.stream_ptr(q))
+        _seed_ptr(seed, rate, q), _build.stream_ptr(q))
     _build.LAUNCHES["mha_fwd"] += 1
     _build.check(code, "mha_fwd")
     return o, lse
 
 
 def mha_bwd(q, k, v, padadd, sw, locs, do, o, lse, n_heads: int,
-            scale: float, rate: float = 0.0, seed: int = 0):
-    """Fused attention backward: (dq, dk, dv, dsw (B, H, L, 6) f32 or None)."""
+            scale: float, rate: float = 0.0, seed: torch.Tensor | None = None):
+    """Fused attention backward: (dq, dk, dv, dsw (B, H, L, 6) f32 or None);
+    ``seed`` the forward's."""
     if not q.is_cuda:
         return mha_bwd_plain(q, k, v, padadd, sw, locs, do, o, lse, n_heads,
                              scale, rate, seed)
@@ -312,7 +330,7 @@ def mha_bwd(q, k, v, padadd, sw, locs, do, o, lse, n_heads: int,
         o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dsw.data_ptr() if dsw is not None else None,
         delta.data_ptr(), B, n_heads, L, T, float(scale), float(rate), inv_t,
-        inv_f, int(seed), _build.stream_ptr(q))
+        inv_f, _seed_ptr(seed, rate, q), _build.stream_ptr(q))
     _build.LAUNCHES["mha_bwd"] += 1
     _build.check(code, "mha_bwd")
     return dq, dk, dv, dsw
@@ -327,14 +345,14 @@ class FusedMHA(torch.autograd.Function):
         with torch.autocast(q.device.type, enabled=False):
             o, lse = mha_fwd(q, k, v, padadd, sw, locs, n_heads, scale, rate,
                              seed)
-        ctx.save_for_backward(q, k, v, padadd, sw, locs, o, lse)
-        ctx.cfg = (n_heads, scale, rate, seed)
+        ctx.save_for_backward(q, k, v, padadd, sw, locs, o, lse, seed)
+        ctx.cfg = (n_heads, scale, rate)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, padadd, sw, locs, o, lse = ctx.saved_tensors
-        n_heads, scale, rate, seed = ctx.cfg
+        q, k, v, padadd, sw, locs, o, lse, seed = ctx.saved_tensors
+        n_heads, scale, rate = ctx.cfg
         with torch.autocast(q.device.type, enabled=False):
             dq, dk, dv, dsw = mha_bwd(q, k, v, padadd, sw, locs,
                                       do.to(q.dtype).contiguous(), o, lse,
@@ -344,7 +362,7 @@ class FusedMHA(torch.autograd.Function):
 
 def fused_mha(q, k, v, n_heads: int, key_padding_mask=None,
               pad_additive=None, gate_sw=None, locs=None,
-              dropout_rate: float = 0.0, seed: int | None = None, *,
+              dropout_rate: float = 0.0, seed: torch.Tensor | None = None, *,
               scale: float):
     """softmax(q k^T * scale [+ cond gate] + pad) @ v with the public
     contract of ``sceneverse_tpu.ops.pallas.mha.fused_mha``.
@@ -352,7 +370,8 @@ def fused_mha(q, k, v, n_heads: int, key_padding_mask=None,
     q (B, L, H*dh), k/v (B, T, H*dh) packed heads, f32 or bf16;
     ``key_padding_mask`` (B, T) bool, True = pad key, or ``pad_additive``
     (B, T) additive row; ``gate_sw`` (B, H, L, 6) with ``locs`` (B, L, T, 5)
-    enables the 'cond' gate; ``dropout_rate`` needs an integer ``seed``.
+    enables the 'cond' gate; ``dropout_rate`` needs a ``seed``, a (1,)
+    int64 tensor on q's device.
     Returns (B, L, H*dh) in q.dtype."""
     B, L, D = q.shape
     T = k.shape[1]
@@ -378,4 +397,5 @@ def fused_mha(q, k, v, n_heads: int, key_padding_mask=None,
     k = k.to(q.dtype)
     return FusedMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                           padadd.detach().contiguous(), sw, lc, n_heads,
-                          float(scale), float(dropout_rate), int(seed or 0))
+                          float(scale), float(dropout_rate),
+                          seed if dropout_rate > 0.0 else None)

@@ -19,7 +19,15 @@ not optimised. Matches the JAX package's optax chain:
     (the unused ``sem_cls_embed_layer`` / ``sem_mask_embeddings`` of the
     vision tower);
   * the LR of step ``t`` (0-based) is ``base_lr * schedule(t)``: the warmup
-    makes it exactly 0 at step 0;
+    makes it exactly 0 at step 0. The step count and each group's LR live
+    on the parameters' device (``step_t``, a float64 tensor each group's
+    ``lr`` is computed from by ``scheduler.py``'s tensor schedules), and on
+    the card AdamW and Adam run with ``capturable=True``: a step reads no
+    host value that changes between steps, so a CUDA graph of it replays
+    correctly (``trainer/build.py``). On the CPU they run torch's
+    single-tensor loop, which takes a tensor LR; SGD is torch's SGD with
+    the update taken as tensor products (``_SGD``). ``step_count`` is the
+    host's copy of the count (checkpoints, the accumulation phase);
   * ``accum`` > 1 is ``optax.MultiSteps(chain(clip, adamw), accum)``: each
     ``step`` folds the gradients into a running mean (``acc += (g - acc) /
     (n + 1)``, MultiSteps' own update) and leaves the parameters as they
@@ -60,18 +68,46 @@ def _no_decay(model: nn.Module, name: str) -> bool:
     return isinstance(owner, (nn.LayerNorm, nn.BatchNorm1d))
 
 
-def _torch_optimizer(name: str, param_groups: list, args: dict):
+class _SGD(torch.optim.SGD):
+    """torch SGD as optax's ``sgd`` uses it (momentum, no dampening, no
+    weight decay) with a tensor LR: ``p -= lr * buf`` as foreach products,
+    so the step reads no host value (torch's own SGD takes the LR as a
+    host scalar). The buffer starts at the first gradient, as torch's."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            upd = [p.grad for p in ps]
+            m = group["momentum"]
+            if m:
+                if group["nesterov"]:
+                    raise ValueError("nesterov SGD is not ported")
+                for i, p in enumerate(ps):
+                    state = self.state[p]
+                    buf = state.get("momentum_buffer")
+                    if buf is None:
+                        state["momentum_buffer"] = buf = upd[i].clone()
+                    else:
+                        buf.mul_(m).add_(upd[i])
+                    upd[i] = buf
+            torch._foreach_sub_(ps, torch._foreach_mul(upd, group["lr"]))
+
+
+def _torch_optimizer(name: str, param_groups: list, args: dict,
+                     device: torch.device):
     """The torch optimizer of optax's ``adamw`` / ``adam`` / ``sgd`` with
-    the config's ``solver.optim.args``."""
+    the config's ``solver.optim.args``; capturable on the card."""
     if name == "SGD":
         momentum = args.pop("momentum", None)
-        return torch.optim.SGD(param_groups, lr=0.0,
-                               momentum=float(momentum or 0.0), dampening=0.0,
-                               nesterov=bool(args.pop("nesterov", False)),
-                               **args)
+        return _SGD(param_groups, lr=0.0, momentum=float(momentum or 0.0),
+                    dampening=0.0, nesterov=bool(args.pop("nesterov", False)),
+                    **args)
     opt = {"AdamW": torch.optim.AdamW, "Adam": torch.optim.Adam}[name]
+    cuda = device.type == "cuda"
     return opt(param_groups, betas=tuple(args.pop("betas", (0.9, 0.999))),
-               eps=float(args.pop("eps", 1e-8)), **args)
+               eps=float(args.pop("eps", 1e-8)), capturable=cuda,
+               foreach=cuda, **args)
 
 
 class GPSOptimizer:
@@ -79,6 +115,7 @@ class GPSOptimizer:
                  accum: int = 1):
         opt_name = cfg.solver.optim.name
         self.schedule = get_schedule_fn(cfg, total_steps)
+        self.schedule_t = get_schedule_fn(cfg, total_steps, on_device=True)
         self.grad_norm = cfg.solver.get("grad_norm")
         groups = model.get_opt_params()
         frozen = [tuple(p) for p in model.frozen_prefixes()]
@@ -98,20 +135,27 @@ class GPSOptimizer:
                   and _no_decay(model, name))
             buckets.setdefault((best, nd), []).append(p)
         self.group_info = [(f"g{i}", float(g["lr"])) for i, g in enumerate(groups)]
+        device = next(model.parameters()).device
         param_groups = []
         for (i, nd), ps in sorted(buckets.items()):
             wd = (float(groups[i].get("weight_decay", 0.01))
                   if opt_name == "AdamW" and not nd else 0.0)
-            param_groups.append({"params": ps, "lr": 0.0, "weight_decay": wd,
-                                 "base_lr": float(groups[i]["lr"])})
+            param_groups.append({
+                "params": ps, "weight_decay": wd,
+                "lr": torch.zeros((), dtype=torch.float64, device=device),
+                "base_lr": float(groups[i]["lr"])})
         self.params = [p for g in param_groups for p in g["params"]]
         self.opt = _torch_optimizer(
             opt_name, param_groups,
-            dict(cfg.solver.optim.get("args", {}) or {}))
+            dict(cfg.solver.optim.get("args", {}) or {}), device)
         self.step_count = 0
+        self.step_t = torch.zeros((), dtype=torch.float64, device=device)
         self.accum = int(accum)
         self.mini_step = 0
-        self.acc = None  # the running mean of a group's gradients
+        # the running mean of a group's gradients, made once: a CUDA graph
+        # of a micro-step reads and writes these tensors in place
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.accum > 1 else None)
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
@@ -124,8 +168,6 @@ class GPSOptimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         if self.accum > 1:
-            if self.acc is None:
-                self.acc = [torch.zeros_like(p) for p in self.params]
             diff = torch._foreach_sub(grads, self.acc)
             torch._foreach_div_(diff, float(self.mini_step + 1))
             torch._foreach_add_(self.acc, diff)
@@ -155,10 +197,11 @@ class GPSOptimizer:
             torch._foreach_div_(grads, torch.where(keep, one, gnorm))
             torch._foreach_mul_(grads, torch.where(
                 keep, one, torch.full_like(gnorm, float(self.grad_norm))))
-        ratio = self.schedule(self.step_count)
+        ratio = self.schedule_t(self.step_t)
         for g in self.opt.param_groups:
-            g["lr"] = g["base_lr"] * ratio
+            g["lr"].copy_(ratio * g["base_lr"])
         self.opt.step()
+        self.step_t.add_(1.0)
         self.step_count += 1
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
@@ -193,12 +236,17 @@ class GPSOptimizer:
                 "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, state: dict) -> None:
+        lrs = [g["lr"] for g in self.opt.param_groups]
         self.opt.load_state_dict(state["opt"])
+        for g, lr in zip(self.opt.param_groups, lrs):
+            g["lr"] = lr  # the device tensor, not the checkpoint's copy
         self.step_count = int(state["step_count"])
+        self.step_t.fill_(float(self.step_count))
         self.mini_step = int(state.get("mini_step", 0))
         acc = state.get("acc")
-        self.acc = (None if acc is None else
-                    [a.to(p.device, p.dtype) for a, p in zip(acc, self.params)])
+        if acc is not None and self.acc is not None:
+            torch._foreach_copy_(self.acc, [a.to(p.device, p.dtype)
+                                            for a, p in zip(acc, self.params)])
         if self.acc is not None and mesh.dp_world() > 1:
             # this rank's share of the global mean: the group's last
             # micro-step sums the shares back over dp

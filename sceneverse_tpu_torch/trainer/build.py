@@ -46,12 +46,42 @@ it whole. Rank 0 writes the log, the checkpoints and ``eval.save``; the
 ranks meet at a barrier after each checkpoint write (rank 0 then writes
 synchronously), and every rank resumes from the same file.
 
-Not ported (dispatch mechanisms of the JAX package with identical math):
-packed host transfer, K steps per dispatch, fused eval.
+The JAX package's dispatch paths (its ``trainer/build.py:44-124,
+300-481, 532-547``) with the same math:
+  * in-step train metrics: an evaluator whose ``batch_metrics`` is tensor
+    math (``JIT_METRICS``, no ``eval.save``) is computed inside the train
+    step (``_fusable_metrics``);
+  * packed transfer (``solver.packed_transfer``, default ``auto``; a world
+    of 1 only, as JAX's single-device mesh): a batch's arrays go to the
+    device as ONE int32 buffer (``_pack_host``; ints narrow to int32 with
+    JAX's overflow check, bools ride as int32, f64 keeps both words) from a
+    pinned, double-buffered host buffer per batch signature, and arrive as
+    views of one device buffer (``_unpack_device``);
+  * K steps per dispatch (``solver.steps_per_dispatch`` = K > 1):
+    ``train_forward_backward_k`` runs K micro-steps of stacked batches. On
+    the card they are one ``torch.cuda.CUDAGraph`` per (batch signature, K,
+    metrics, accumulation phase): the first chunk of a key runs eagerly
+    (the warm-up, which also allocates the optimizer state), the second
+    captures, and every chunk from then on is one ``replay()`` of the graph
+    (all on one stream of the trainer's own), whose dropout and
+    attention-seed generators are registered with it so that each replay
+    draws new masks. A capture that
+    fails raises; nothing falls back to eager steps. On the CPU the same
+    step function runs K times in a row (the math of JAX's scan);
+  * fused eval (``eval_fused``): the forward and the (value, count) sums of
+    ``solver.eval_steps_per_dispatch`` same-signature eval batches in one
+    replay, the tail batch of a ``drop_last=False`` loader in its own graph,
+    the sums handed to ``BaseEvaluator.update_sums``; in a world of more
+    than one rank the group runs without a graph.
+A replay does not run the kernel wrappers, so it adds the launches the
+capture recorded to ``ops/_build.LAUNCHES`` itself. With K > 1 a world of
+more than one rank raises: gloo cannot be captured, and NCCL graphs over
+several cards wait for a machine that has them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from pathlib import Path
@@ -68,7 +98,8 @@ from sceneverse_tpu_torch.ckpt.convert import load_torch_pretrain
 from sceneverse_tpu_torch.data.build import build_dataloader
 from sceneverse_tpu_torch.evaluator import build_eval
 from sceneverse_tpu_torch.model import build_model
-from sceneverse_tpu_torch.modules.utils import set_generators
+from sceneverse_tpu_torch.modules.utils import _streams, set_generators
+from sceneverse_tpu_torch.ops import _build
 from sceneverse_tpu_torch.optim.build import GPSOptimizer
 from sceneverse_tpu_torch.optim.loss.loss import Loss
 from sceneverse_tpu_torch.parallel import mesh, vocab
@@ -94,6 +125,184 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
+def _arrays(batch: dict) -> dict:
+    """The leaves of a host batch that ride to the device: arrays (numpy or
+    torch) and numbers; strings and lists stay on the host."""
+    out = {}
+    for k, v in batch.items():
+        if torch.is_tensor(v):
+            out[k] = v.detach().cpu().numpy()
+        elif isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
+            out[k] = v
+        elif isinstance(v, (bool, int, float, np.number)):
+            out[k] = np.asarray(v)
+    return out
+
+
+def _stack_batches(data_dicts: list) -> dict:
+    """K same-shape host batches stacked on a new leading axis (JAX
+    ``trainer/build.py:102-114``); numbers become (K,) arrays, strings and
+    lists are dropped."""
+    rows = [_arrays(d) for d in data_dicts]
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _batch_signature(data_dict: dict) -> tuple:
+    """(key, shape, dtype) of every array leaf: batches of one signature
+    share a staging buffer and a graph (JAX ``trainer/build.py:117-124``);
+    the smaller tail batch of a ``drop_last=False`` loader gets its own."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in _arrays(data_dict).items()))
+
+
+def _layout(arrays: dict, k=None) -> tuple:
+    """Static layout of ``_pack_host``: (key, shape, kind, dtype, offset,
+    int32 words) per leaf, in key order; an f64 leaf starts at an even
+    word. With ``k`` the layout of the arrays stacked k times."""
+    metas, off = [], 0
+    lead, times = ((k,), k) if k else ((), 1)
+    for key in sorted(arrays):
+        a = arrays[key]
+        size = a.size * times
+        if a.dtype == np.bool_:
+            kind, n = "bool", size
+        elif a.dtype == np.float64:
+            kind, n = "f64", 2 * size
+            off += off % 2
+        elif np.issubdtype(a.dtype, np.floating):
+            kind, n = "f32", size
+        else:
+            kind, n = "int", size
+        metas.append((key, lead + tuple(a.shape), kind, str(a.dtype), off, n))
+        off += n
+    return tuple(metas), off + off % 2
+
+
+def _pack_into(out: np.ndarray, rows: list, metas: tuple) -> None:
+    """Write the batches ``rows`` (one, or the K of a stacked layout, each
+    into its share of every leaf's words) into the int32 buffer ``out``."""
+    for k, shape, kind, _, off, n in metas:
+        m = n // len(rows)
+        for j, row in enumerate(rows):
+            a, seg = np.asarray(row[k]), out[off + j * m:off + (j + 1) * m]
+            if kind == "int":
+                if a.dtype != np.int32 and a.size and (
+                        a.max() >= 2 ** 31 or a.min() < -2 ** 31):
+                    raise OverflowError(
+                        f"batch key {k!r} has values outside int32 range; "
+                        "packed transfer would wrap silently")
+                seg[:] = a.reshape(-1)
+            elif kind == "bool":
+                seg[:] = a.reshape(-1)
+            else:
+                t = np.float64 if kind == "f64" else np.float32
+                seg[:] = np.ascontiguousarray(a, t).reshape(-1).view(np.int32)
+
+
+def _pack_host(arrays: dict):
+    """A dict of host arrays as ONE int32 buffer and its static layout (JAX
+    ``trainer/build.py:44-81``): one host-to-device copy for the batch in
+    place of one per leaf. f32 rides bit for bit, ints narrow to int32 and
+    raise ``OverflowError`` outside its range (as JAX), bools ride as int32,
+    f64 as its two words (JAX runs with x64 off and narrows it; the port's
+    float64 models keep it). JAX's swap of tiny minor dimensions exists for
+    the TPU's lane padding and is not ported."""
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    metas, n = _layout(arrays)
+    buf = np.zeros(n, np.int32)
+    _pack_into(buf, [arrays], metas)
+    return buf, metas
+
+
+def _unpack_device(buf: torch.Tensor, metas: tuple) -> dict:
+    """Inverse of ``_pack_host`` on the device: f32 and f64 leaves are views
+    of ``buf``, ints and bools one cast each, back to their dtypes."""
+    out = {}
+    for k, shape, kind, dtype, off, n in metas:
+        seg = buf[off:off + n]
+        if kind == "f32":
+            arr = seg.view(torch.float32)
+        elif kind == "f64":
+            arr = seg.view(torch.float64)
+        elif kind == "bool":
+            arr = seg != 0
+        else:
+            arr = seg.to(getattr(torch, dtype))
+        out[k] = arr.view(shape)
+    return out
+
+
+class _Staging:
+    """The device buffer of one batch signature, which a graph reads as its
+    static input, fed by one ``copy_(non_blocking=True)`` from one of two
+    pinned host buffers; a host buffer is written again only after its last
+    copy has finished (an event), so no copy in flight is overwritten."""
+
+    def __init__(self, metas, n, device):
+        self.metas = metas
+        self.host = [torch.empty(n, dtype=torch.int32, pin_memory=True)
+                     for _ in range(2)]
+        self.done = [None, None]
+        self.dev = torch.empty(n, dtype=torch.int32, device=device)
+        self.turn = 0
+
+    def put(self, rows: list):
+        """Copy the batches ``rows`` in (one, or the K of a stacked layout);
+        returns the unpack, which a graph runs inside itself (its casts then
+        write the graph's own memory)."""
+        i, self.turn = self.turn, 1 - self.turn
+        if self.done[i] is not None:
+            self.done[i].synchronize()
+        _pack_into(self.host[i].numpy(), rows, self.metas)
+        self.dev.copy_(self.host[i], non_blocking=True)
+        self.done[i] = torch.cuda.Event()
+        self.done[i].record()
+        return lambda: _unpack_device(self.dev, self.metas)
+
+
+class _LeafStaging:
+    """Static device tensors of one batch signature, one copy per leaf
+    (``packed_transfer=off``)."""
+
+    def __init__(self, arrays, device):
+        self.dev = {k: torch.empty(v.shape, dtype=torch.from_numpy(
+            np.asarray(v)).dtype, device=device) for k, v in arrays.items()}
+
+    def put(self, arrays: dict):
+        for k, v in arrays.items():
+            self.dev[k].copy_(torch.from_numpy(np.ascontiguousarray(v)),
+                              non_blocking=True)
+        return lambda: dict(self.dev)
+
+
+class _Graph:
+    """A captured CUDA graph, its static outputs, the launches its capture
+    recorded and the host counters (optimizer step, accumulation phase) it
+    moves per replay."""
+
+    def __init__(self, graph, outputs, launches, counters):
+        self.graph, self.outputs = graph, outputs
+        self.launches, self.counters = launches, counters
+
+    def replay(self, trainer):
+        self.graph.replay()
+        _build.LAUNCHES.update(self.launches)
+        opt = trainer.optimizer
+        opt.step_count += self.counters[0]
+        opt.mini_step = self.counters[1]
+        return _tree_clone(self.outputs)
+
+
+def _tree_clone(tree):
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_clone(v) for v in tree)
+    return tree
+
+
 class Tracker:
     """Checkpointable experiment progress (JAX ``trainer/build.py:127-143``)."""
 
@@ -112,8 +321,13 @@ class Tracker:
         self.__dict__.update(state_dict)
 
 
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def _scalar(v, device) -> torch.Tensor:
-    """A 0-d f32 tensor on ``device`` without a host-to-device copy."""
+    """A 0-d f32 tensor on ``device`` without a host-to-device copy (a
+    fill, which a CUDA graph capture allows)."""
     if torch.is_tensor(v):
         return v.detach().float().reshape(())
     return torch.full((), float(v), device=device)
@@ -179,29 +393,254 @@ class BaseTrainer:
         # the vocabulary split LAST, as JAX places its state last: the
         # pretrain load and the resume read whole heads
         self.vocab_split = vocab.split_heads(self.model, self.optimizer)
+        solver = cfg.solver
+        self.steps_per_dispatch = max(1, int(
+            solver.get("steps_per_dispatch", 1) or 1))
+        self.eval_steps_per_dispatch = max(1, int(solver.get(
+            "eval_steps_per_dispatch", self.steps_per_dispatch) or 1))
+        if self.steps_per_dispatch > 1 and mesh.world() > 1:
+            raise ValueError(
+                f"solver.steps_per_dispatch={self.steps_per_dispatch} needs "
+                f"a world of 1: the {torch.distributed.get_backend()} "
+                "process group of "
+                f"{mesh.world()} ranks cannot run in a CUDA graph here (gloo "
+                "cannot be captured; NCCL graphs over several cards are not "
+                "ported yet)")
+        # JAX build.py:249-252: one device, and the key not "off"
+        self._packed = (mesh.world() == 1 and str(solver.get(
+            "packed_transfer", "auto")).lower() != "off")
+        self._staging = {}  # batch signature -> _Staging
+        self._graphs = {}  # graph key -> _Graph, or None once seen eagerly
+        # the card's steps, eager and graphed, run on one stream of their
+        # own, where the graphs are captured too: autograd joins a leaf's
+        # gradient on the stream its accumulator was made on, and a join
+        # with the legacy default stream would break a capture
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
 
-    def autocast(self):
+    def autocast(self, cache=True):
+        """The bf16 autocast of ``mixed_precision`` (off otherwise); a CUDA
+        graph captures with its weight cache off."""
         return torch.autocast(self.device.type, dtype=self.amp_dtype or
-                              torch.bfloat16, enabled=self.amp_dtype is not None)
+                              torch.bfloat16, enabled=self.amp_dtype is not None,
+                              cache_enabled=cache)
 
-    def train_forward_backward(self, batch: dict):
-        """One eager micro-step: forward, loss, backward, then the
-        optimizer, which moves the parameters on every
-        ``gradient_accumulation_steps``-th call (clip, AdamW, schedule)."""
-        self.model.train()
-        self.optimizer.zero_grad()
-        with self.autocast():
-            out = self.model(batch)
-            total, losses = self.loss(out)
-        total.backward()
-        self.optimizer.step()
-        return out, losses
+    def train_forward_backward(self, batch: dict, metrics_fn=None):
+        """One micro-step: forward, loss, backward, then the optimizer, which
+        moves the parameters on every ``gradient_accumulation_steps``-th
+        call (clip, AdamW, schedule). With ``metrics_fn`` (an evaluator's
+        ``batch_metrics``) the train metrics are computed in the step and
+        returned in place of the model outputs (JAX
+        ``trainer/build.py:263-296``); over a data-parallel world they are
+        (value, count) pairs, which ``flush_train_logs`` sums."""
+        with self.on_stream():
+            self.model.train()
+            self.optimizer.zero_grad()
+            with self.autocast(cache=not _capturing()):
+                out = self.model(batch)
+                total, losses = self.loss(out)
+            total.backward()
+            self.optimizer.step()
+            losses = {k: v.detach() for k, v in losses.items()}
+            if metrics_fn is None:
+                return out, losses
+            return metrics_fn({**batch, **out},
+                              include_count=mesh.dp_world() > 1), losses
 
     @torch.no_grad()
     def forward(self, batch: dict):
-        self.model.eval()
-        with self.autocast():
-            return self.model(batch)
+        with self.on_stream():
+            self.model.eval()
+            with self.autocast(cache=not _capturing()):
+                return self.model(batch)
+
+    @contextlib.contextmanager
+    def on_stream(self):
+        """Run the block on the trainer's stream (the card), ordered after
+        the caller's stream's work and before its later work."""
+        if self._stream is None or _capturing():
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        if cur == self._stream:
+            yield
+            return
+        self._stream.wait_stream(cur)
+        try:
+            with torch.cuda.stream(self._stream):
+                yield
+        finally:
+            cur.wait_stream(self._stream)
+
+    # ---------------------------------------------------- dispatch paths
+    def _fusable_metrics(self, evaluator):
+        """The evaluator's ``batch_metrics``, one bound method per evaluator
+        (a graph key), when it is tensor math: ``JIT_METRICS``, no
+        ``eval.save`` and no ``debug.nans`` hooks (host checks); None
+        otherwise, and the loops call it after the step (JAX
+        ``trainer/build.py:532-547``)."""
+        if (getattr(evaluator, "save", False)
+                or not getattr(evaluator, "JIT_METRICS", False)
+                or self.cfg.select("debug.nans", False)):
+            return None
+        fn = evaluator.__dict__.get("_bound_batch_metrics")
+        if fn is None:
+            fn = evaluator.__dict__["_bound_batch_metrics"] = \
+                evaluator.batch_metrics
+        return fn
+
+    def device_batch(self, host: dict) -> dict:
+        """A host batch's arrays on the device: packed (one copy, views of
+        one buffer) in a world of 1 unless ``packed_transfer`` is off, else
+        one copy per leaf (``to_device``). On the card the packed float
+        leaves are views of the signature's staging buffer, which the next
+        batch of that signature overwrites: use them before sending it."""
+        if not self._packed:
+            return to_device(host, self.device)
+        return self._stage([_arrays(host)], stacked=False)()
+
+    def _stage(self, rows: list, stacked=True):
+        """Send the host batches ``rows`` to the device, stacked on a new
+        leading axis (else the one batch as it is); returns the function
+        that makes the batch dict there, run inside a graph so that every
+        tensor the graph reads lives in its signature's static buffers or
+        its pool. The packed stack is written batch by batch into the
+        pinned buffer (no host-side stack)."""
+        if self.device.type == "cuda" and self._packed:
+            sig = (stacked, len(rows), tuple(
+                (k, v.shape, str(v.dtype)) for k, v in sorted(rows[0].items())))
+            st = self._staging.get(sig)
+            if st is None:
+                metas, n = _layout(rows[0], len(rows) if stacked else None)
+                st = self._staging[sig] = _Staging(metas, n, self.device)
+            return st.put(rows)
+        arrays = _stack_batches(rows) if stacked else rows[0]
+        if self.device.type != "cuda":
+            if not self._packed:
+                batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in arrays.items()}
+                return lambda: batch
+            buf, metas = _pack_host(arrays)
+            return lambda: _unpack_device(torch.from_numpy(buf), metas)
+        sig = tuple((k, v.shape, str(v.dtype)) for k, v in
+                    sorted(arrays.items()))
+        st = self._staging.get(sig)
+        if st is None:
+            st = self._staging[sig] = _LeafStaging(arrays, self.device)
+        return st.put(arrays)
+
+    def _graphed(self, key, fn, capture_counters=False):
+        """``fn()`` through the graph of ``key`` on the card: eagerly the
+        first time (the warm-up: lazy state, cuBLAS workspaces), captured
+        the second time on the trainer's stream, replayed from then on. A
+        failed capture raises. On the CPU, and in a world of more than one
+        rank (whose collectives no graph here captures), ``fn()`` itself."""
+        if self.device.type != "cuda" or mesh.world() > 1:
+            return fn()
+        with self.on_stream():
+            if key not in self._graphs:
+                out = fn()
+                self._graphs[key] = None
+                return out
+            g = self._graphs[key]
+            if g is None:
+                g = self._graphs[key] = self._capture(fn, key)
+            return g.replay(self)
+
+    def _capture(self, fn, key) -> _Graph:
+        graph = torch.cuda.CUDAGraph()
+        register = getattr(graph, "register_generator_state", None)
+        gens = [g for g in _streams(self.model) if g.device.type == "cuda"]
+        if gens and register is None:
+            raise RuntimeError("this torch cannot register a generator with "
+                               "a CUDA graph (CUDAGraph.register_generator_"
+                               "state): dropout would replay one mask")
+        for g in gens:
+            register(g)
+        opt = self.optimizer
+        launches = _build.LAUNCHES.copy()
+        host = (opt.step_count, opt.mini_step)
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                outputs = fn()
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of {key[0]} "
+                               f"(K={key[2]}) failed: {e}") from e
+        finally:
+            recorded = _build.LAUNCHES - launches
+            _build.LAUNCHES.subtract(recorded)  # a capture launches nothing
+        counters = (opt.step_count - host[0], opt.mini_step)
+        opt.step_count, opt.mini_step = host
+        return _Graph(graph, outputs, recorded, counters)
+
+    def train_forward_backward_k(self, data_dicts: list, metrics_fn):
+        """``len(data_dicts)`` micro-steps of stacked host batches in one
+        dispatch (JAX ``trainer/build.py:300-378``): on the card one replay
+        of a CUDA graph keyed by (signature, K, metrics, accumulation
+        phase), on the CPU the same step function K times. Returns
+        (metrics, losses) of stacked (K,) device tensors, which
+        ``flush_train_logs`` takes as K rows."""
+        k = len(data_dicts)
+        unpack = self._stage([_arrays(d) for d in data_dicts])
+
+        def steps():
+            batches = unpack()
+            rows = [self.train_forward_backward(
+                {n: v[j] for n, v in batches.items()}, metrics_fn)
+                for j in range(k)]
+            return tuple({n: torch.stack([_scalar(r[i][n], self.device)
+                                          for r in rows])
+                          for n in rows[0][i]} for i in (0, 1))
+
+        key = ("train", _batch_signature(data_dicts[0]), k, id(metrics_fn),
+               self.optimizer.mini_step)
+        return self._graphed(key, steps)
+
+    @torch.no_grad()
+    def eval_metrics_k(self, data_dicts: list, metrics_fn) -> dict:
+        """The forward and the (value, count) sums of K same-signature eval
+        batches in one dispatch (JAX ``trainer/build.py:395-440``):
+        {name: (value_sum, count_sum)} f32 device scalars."""
+        k = len(data_dicts)
+        unpack = self._stage([_arrays(d) for d in data_dicts])
+
+        def sums():
+            batches = unpack()
+            total = {}
+            for j in range(k):
+                b = {n: v[j] for n, v in batches.items()}
+                for name, (v, c) in metrics_fn(
+                        {**b, **self.forward(b)}, include_count=True).items():
+                    v, c = _scalar(v, self.device), _scalar(c, self.device)
+                    if name in total:
+                        v, c = total[name][0] + v, total[name][1] + c
+                    total[name] = (v, c)
+            return total
+
+        return self._graphed(("eval", _batch_signature(data_dicts[0]), k,
+                              id(metrics_fn)), sums)
+
+    def eval_fused(self, evaluator, loader, metrics_fn) -> None:
+        """One eval split through ``eval_metrics_k``: batches grouped into
+        runs of one signature, ``eval_steps_per_dispatch`` at a time, each
+        group's sums into ``evaluator.update_sums`` (JAX
+        ``trainer/build.py:443-481``)."""
+        chunk, sig = [], None
+
+        def flush():
+            if chunk:
+                evaluator.update_sums(self.eval_metrics_k(chunk, metrics_fn))
+                chunk.clear()
+
+        for host in loader:
+            s = _batch_signature(host)
+            if sig is not None and s != sig:
+                flush()
+            sig = s
+            chunk.append(host)
+            if len(chunk) == self.eval_steps_per_dispatch:
+                flush()
+        flush()
 
     # ---------------------------------------------------------------- logging
     def log(self, results: dict, mode="train", step=None):
@@ -222,16 +661,32 @@ class BaseTrainer:
 
     def flush_train_logs(self, pending: list) -> None:
         """Fetch a buffer of ``(step, {key: device scalar}, t_start)``
-        entries in ONE device-to-host copy and write each as its own log
-        row and ``history["train"]`` row (JAX ``trainer/build.py:572-610``).
-        A row's ``step_s`` is the host time from its step's start to the
-        next step's start, the last one's to the end of this copy.
+        entries, and ``(first_step, {key: (K,) tensor}, t_start, K)`` ones
+        from ``train_forward_backward_k``, in ONE device-to-host copy and
+        write each step as its own log row and ``history["train"]`` row
+        (JAX ``trainer/build.py:572-610``). A row's ``step_s`` is the host
+        time from its step's start to the next step's start, the last
+        one's to the end of this copy; the K rows of a chunk share its time
+        evenly.
 
         Over a data-parallel world a value is this rank's share of a loss
         or a metric's ``(value, count)`` pair; the buffer is summed over
         the ranks before the copy and a pair's ratio taken on the host."""
         if not pending:
             return
+        rows = []  # (step, {key: scalar}, t_start), one a step
+        for entry in pending:
+            step, vals, t0 = entry[:3]
+            k = entry[3] if len(entry) == 4 else 0
+            if not k:
+                rows.append(entry)
+                continue
+            for j in range(k):
+                rows.append((step + j, {n: (tuple(x[j] for x in v)
+                                            if isinstance(v, tuple) else v[j])
+                                        for n, v in vals.items()},
+                             (t0, j, k)))
+        pending = rows
         keys = list(dict.fromkeys(k for _, vals, _ in pending for k in vals))
         nan = float("nan")
 
@@ -256,7 +711,13 @@ class BaseTrainer:
             host = np.where(pair, value / np.maximum(count, np.float32(1)),
                             value)
         t_end = time.perf_counter()
-        starts = [t for _, _, t in pending] + [t_end]
+        starts = [t if not isinstance(t, tuple) else None
+                  for _, _, t in pending] + [t_end]
+        for i, (_, _, t) in enumerate(pending):
+            if isinstance(t, tuple):  # row j of a K-step chunk started at t0
+                t0, j, k = t
+                t_next = next(x for x in starts[i - j + k:] if x is not None)
+                starts[i] = t0 + (t_next - t0) * j / k
         for i, ((step, _, _), vals) in enumerate(zip(pending, host)):
             row = {k: float(v) for k, v in zip(keys, vals)}
             self.log(row, mode="train", step=step)
@@ -268,6 +729,7 @@ class BaseTrainer:
         """Warm start from ``pretrain_ckpt_path`` (``pytorch_model*.bin``
         shards or a ``best.pth``), after the model is on its device (JAX
         ``trainer/build.py:213-215, 674-681``)."""
+        self._graphs = {}
         n = load_torch_pretrain(self.model, self.pretrain_ckpt_path)
         self.pretrain_loaded = n
         print(f"Loaded {n} tensors from {self.pretrain_ckpt_path}")
@@ -306,6 +768,7 @@ class BaseTrainer:
             print("training from scratch")
             return
         state = load_checkpoint(target)
+        self._graphs = {}  # the optimizer's state tensors are replaced
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.exp_tracker.load_state_dict(state["tracker"])

@@ -10,10 +10,14 @@ and end that epoch, as in the JAX package. Every epoch saves
 ``ckpt_N.pth`` every ``solver.epochs_per_save`` epochs; ``run`` drains the
 asynchronous saves before it returns.
 
-``solver.steps_per_dispatch`` and the JAX package's fused eval are
-dispatch mechanisms of XLA with the same math as one step (one eval batch)
-at a time: the keys are accepted and this trainer runs one step at a time.
-Their analog on the card is CUDA graphs (ROADMAP A2).
+The loops are the JAX package's (``default_trainer.py:44-129``): the
+train loop takes ``solver.steps_per_dispatch`` = K batches a chunk and
+runs a whole chunk through ``train_forward_backward_k`` (one CUDA graph
+replay on the card) when the train evaluator's metrics fuse into the step;
+a tail chunk of fewer than K batches, and every chunk when they do not
+fuse, takes the single-step path. The eval loop sends a split through
+``eval_fused`` when its evaluator's metrics fuse, else through the eager
+forward and ``update`` per batch.
 """
 
 from __future__ import annotations
@@ -22,8 +26,7 @@ import time
 
 from sceneverse_tpu_torch.ckpt.checkpoint import wait_for_checkpoints
 from sceneverse_tpu_torch.parallel import mesh
-from sceneverse_tpu_torch.trainer.build import (TRAINER_REGISTRY, BaseTrainer,
-                                                to_device)
+from sceneverse_tpu_torch.trainer.build import TRAINER_REGISTRY, BaseTrainer
 from sceneverse_tpu_torch.utils.profiling import trace
 
 
@@ -52,23 +55,48 @@ class DefaultTrainer(BaseTrainer):
         profiling = self.profile_enabled and epoch == 0
         log_every = max(1, int(self.cfg.solver.get("log_every", 10)))
         exp_dir = self.cfg.get("exp_dir") or "."
+        spd = self.steps_per_dispatch
+        fused = self._fusable_metrics(evaluator)
         pending = []
-        with trace(f"{exp_dir}/profile", enabled=profiling and n > 0):
-            for i, batch in enumerate(loader):
-                t0 = time.perf_counter()
-                batch = self._annotate_batch(to_device(batch, self.device),
-                                             epoch * n + i)
+
+        def single(host, i):
+            t0 = time.perf_counter()
+            batch = self._annotate_batch(self.device_batch(host), epoch * n + i)
+            if fused is not None:
+                metrics, losses = self.train_forward_backward(batch, fused)
+            else:
                 out, losses = self.train_forward_backward(batch)
                 # over a data-parallel world the (value, count) pairs, which
                 # flush_train_logs sums over the ranks
                 metrics = evaluator.batch_metrics(
                     {**batch, **out}, include_count=mesh.dp_world() > 1)
-                self.global_step += 1
-                pending.append((self.global_step, {**losses, **metrics}, t0))
-                if len(pending) >= log_every:
+            self.global_step += 1
+            pending.append((self.global_step, {**losses, **metrics}, t0))
+
+        with trace(f"{exp_dir}/profile", enabled=profiling and n > 0):
+            i, it = 0, iter(loader)
+            while True:
+                chunk = [b for _, b in zip(range(spd), it)]
+                if not chunk:
+                    break
+                if len(chunk) == spd > 1 and fused is not None:
+                    t0 = time.perf_counter()
+                    hosts = [self._annotate_batch(dict(b), epoch * n + i + j)
+                             for j, b in enumerate(chunk)]
+                    metrics, losses = self.train_forward_backward_k(hosts,
+                                                                    fused)
+                    pending.append((self.global_step + 1,
+                                    {**losses, **metrics}, t0, spd))
+                    self.global_step += spd
+                else:
+                    for j, b in enumerate(chunk):
+                        single(b, i + j)
+                i += len(chunk)
+                if sum(e[3] if len(e) == 4 else 1
+                       for e in pending) >= log_every:
                     self.flush_train_logs(pending)
                     pending = []
-                if profiling and i + 1 >= self.profile_steps:
+                if profiling and i >= self.profile_steps:
                     break
             self.flush_train_logs(pending)
 
@@ -76,7 +104,8 @@ class DefaultTrainer(BaseTrainer):
         """Every loader of the split through its evaluator (one evaluator
         serves a list of loaders): each is recorded, logged and reset on its
         own, ``is_best`` is their OR and the results are merged (JAX
-        ``default_trainer.py:102-129``)."""
+        ``default_trainer.py:98-129``). An evaluator whose metrics fuse
+        takes ``eval_fused``; ``record`` is the split's one fetch."""
         evaluators = self._val_evaluator()
         loaders = self.data_loaders[split]
         ev_list = evaluators if isinstance(evaluators, list) else [evaluators]
@@ -85,11 +114,15 @@ class DefaultTrainer(BaseTrainer):
             ev_list = ev_list * len(ld_list)
         is_best, results = False, {}
         for ev, loader in zip(ev_list, ld_list):
-            for host in loader:
-                batch = to_device(host, self.device)
-                # the host batch's lists (string item ids, sentences) stay
-                # beside the tensors, as the JAX evaluators get them
-                ev.update({**host, **batch, **self.forward(batch)})
+            fused = self._fusable_metrics(ev)
+            if fused is not None:
+                self.eval_fused(ev, loader, fused)
+            else:
+                for host in loader:
+                    batch = self.device_batch(host)
+                    # the host batch's lists (string item ids, sentences)
+                    # stay beside the tensors, as the JAX evaluators get them
+                    ev.update({**host, **batch, **self.forward(batch)})
             best_i, res_i = ev.record()
             is_best = is_best or best_i
             results.update(res_i)

@@ -267,13 +267,15 @@ def test_mha_kernels_match_plain(dev, dtype, tol, L, T, gate, rate, padkind):
     pad[:, 0] = 0.0
     sw = torch.randn((B, H, L, 6), generator=g).to(dev) if gate else None
     locs = torch.randn((B, L, T, 5), generator=g).to(dev) if gate else None
-    args = (q, k, v, pad, sw, locs, H, 0.125, rate, 5)
+    seed = torch.tensor([5], device=dev)  # read from device memory
+    args = (q, k, v, pad, sw, locs, H, 0.125, rate, seed)
     o, lse = mha.mha_fwd(*args)
     o2, lse2 = mha.mha_fwd(*args)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o_ref, lse_ref = mha.mha_fwd_plain(*args)
     assert _rel(o, o_ref) <= tol and _rel(lse, lse_ref) <= tol
-    bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, 0.125, rate, 5)
+    bargs = (q, k, v, pad, sw, locs, do, o_ref, lse_ref, H, 0.125, rate,
+             seed)
     got = mha.mha_bwd(*bargs)
     again = mha.mha_bwd(*bargs)
     want = mha.mha_bwd_plain(*bargs)

@@ -89,7 +89,8 @@ def _torch_run(d, kw, H, rate, scale, seed):
             leaves["gate_sw"] = t
         extra[k] = t
     o = tmha.fused_mha(leaves["q"], leaves["k"], leaves["v"], H,
-                       dropout_rate=rate, seed=seed, scale=scale, **extra)
+                       dropout_rate=rate, seed=torch.tensor([seed]),
+                       scale=scale, **extra)
     (o * torch.tensor(d["w"])).sum().backward()
     names = ["q", "k", "v"] + (["gate_sw"] if "gate_sw" in leaves else [])
     return o.detach().numpy(), [leaves[n].grad.numpy() for n in names]
@@ -114,12 +115,14 @@ def test_dropout_mask_matches_jax_hash():
     from sceneverse_tpu.ops.pallas.mha import _uniform01_hash
 
     B, H, L, T, seed, keep = 2, 3, 5, 7, -17, 0.9
-    got = tmha.dropout_keep_mask(B, H, L, T, seed, keep, "cpu").numpy()
+    got = tmha.dropout_keep_mask(B, H, L, T, torch.tensor([seed]), keep,
+                                 "cpu").numpy()
     for b in range(B):
         for h in range(H):
             u = _uniform01_hash((L, T), jnp.int32(seed + b * H + h))
             np.testing.assert_array_equal(got[b, h], np.asarray(u) < keep)
-    frac = tmha.dropout_keep_mask(4, 4, 64, 64, 3, keep, "cpu").float().mean()
+    frac = tmha.dropout_keep_mask(4, 4, 64, 64, torch.tensor([3]), keep,
+                                  "cpu").float().mean()
     assert abs(float(frac) - keep) < 0.01
 
 

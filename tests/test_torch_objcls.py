@@ -471,9 +471,9 @@ def entry(tmp_path_factory):
     seen = []
     real = ObjPretrainTrainer.train_forward_backward
 
-    def spy(self, batch):
+    def spy(self, batch, *metrics_fn):
         seen.append(sorted(batch))
-        return real(self, batch)
+        return real(self, batch, *metrics_fn)
 
     argv = ["--config-path", str(base), "--config-name", "objcls"]
     with pytest.MonkeyPatch.context() as mp:

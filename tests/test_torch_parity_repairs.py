@@ -355,6 +355,7 @@ def _jax_eval_loop(loaders, ev):
 
 @pytest.mark.parametrize("best", [(), (1,), (2,), (1, 2)])
 def test_eval_loop_records_each_loader(best):
+    from sceneverse_tpu_torch.trainer.build import to_device
     from sceneverse_tpu_torch.trainer.openvocab_trainer import (
         OpenVocabTrainer)
 
@@ -363,8 +364,9 @@ def test_eval_loop_records_each_loader(best):
     ev = _Recorder(best)
     fake = types.SimpleNamespace(
         evaluator={"val": ev}, _val_evaluator=lambda: ev,
-        data_loaders={"val": loaders},
-        device="cpu", forward=lambda b: {}, history={"val": []},
+        data_loaders={"val": loaders}, _fusable_metrics=lambda e: None,
+        device_batch=lambda h: to_device(h, "cpu"),
+        forward=lambda b: {}, history={"val": []},
         log=lambda r, mode: logged.append((mode, dict(r))))
     got = OpenVocabTrainer._eval_loop(fake, "val", "val")
     want, jlogged = _jax_eval_loop(loaders, _Recorder(best))

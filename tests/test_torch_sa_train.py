@@ -318,15 +318,19 @@ def test_routing_by_gates(monkeypatch, fold, fused, train, route):
         g = torch.cat([xyz, feats], -1)[:, None]
         for layer in sa.mlps[0].layers():
             bn = layer.bn.bn
-            h = layer.conv(g)
             if train:
+                # train mode runs the layer in float64 and rounds its output
+                # once (ConvBNReLU.forward)
+                h = g.double() @ layer.conv.weight.double().t()
                 rows = h.reshape(-1, h.shape[-1])
-                mean = rows.mean(0)
-                var = torch.clamp_min((rows * rows).mean(0) - mean * mean, 0)
+                mean = rows.sum(0) / rows.shape[0]
+                var = torch.clamp_min((rows * rows).sum(0) / rows.shape[0]
+                                      - mean * mean, 0)
             else:
+                h = layer.conv(g)
                 mean, var = bn.running_mean, bn.running_var
             g = torch.relu((h - mean) * (torch.rsqrt(var + bn.eps)
-                                         * bn.weight) + bn.bias)
+                                         * bn.weight) + bn.bias).float()
         assert torch.equal(out, g.amax(dim=2))
 
 
