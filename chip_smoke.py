@@ -95,9 +95,19 @@ Phases (any failure exits non-zero; nothing is caught):
      resumed state bit-equal to the saved one, a falling loss, a rising
      train accuracy; launch counts set to 0 before and read after); and
      the ``profile.enabled``, ``debug.nans`` and ``eval.save`` switches.
+  6b. graphs (``phase_graphs``): the JAX trainer's dispatch paths as CUDA
+     graphs, frozen and unfrozen_fused at full width (f32, dropout on) and
+     frozen at k = 2 / K = 3: GRAPH_BATCHES eager steps against the same
+     batches through ``train_forward_backward_k`` from one saved state
+     (parameters and logged rows within GRAPH_TOL), two replays on one
+     chunk drawing other masks, each step's CUDA-event ms eager and
+     graphed, the peak at K = 1 and K, one H2D copy a chunk, and the fused
+     val split with a tail batch equal to the eager loop.
   7. data (``phase_data``): ``configs/final/all_pretrain.yaml`` as it
-     stands (batch 64, 4 spawned loader workers, the five families'
-     datasets and wrappers) through ``run_torch.main`` from an on-disk
+     stands (batch 64, 4 spawned train-loader workers, the five families'
+     datasets and wrappers; the one-batch val and test loaders in this
+     process, ``eval_loaders_in_process``) through
+     ``run_torch.main`` from an on-disk
      SceneVerse tree the port's ``data/fixture.py`` writes under build/
      (1 scan, 90 objects of 1200 points, about 2,500 train items), only the
      data roots, ``num_gpu=1``, ``data.args.pc_type=gt``, one epoch and a
@@ -108,8 +118,7 @@ Phases (any failure exits non-zero; nothing is caught):
      oracle logits replace the model's (``check_eval``, which also logs
      what the trained model picks); the same, for MATERIALIZED_STEPS
      train steps, with ``data.args.materialized=fast`` over stores built
-     beforehand and its val and test loaders at 0 workers (the main run
-     holds the 4-worker ones); ``mha_fwd`` / ``mha_bwd`` (f32 tolerance, two runs
+     beforehand and its val and test loaders at 0 workers; ``mha_fwd`` / ``mha_bwd`` (f32 tolerance, two runs
      bit-equal) on the operands one train step on a pipeline batch hands
      them (B = 64: its text and object padding, its 'cond' gate);
      ``fps`` (bit-equal) and ``sa_group_mlp_pool`` (SA_TOL) against their
@@ -217,8 +226,11 @@ Phases (any failure exits non-zero; nothing is caught):
      CUDA-event times of the head's all-gather, its input's gradient sum,
      the clip's all-reduce, the replicas' broadcast and the dp gradient
      sum, with the card's name and power limit.
- 12. prints the kernel table as one JSON line, the card line, and last
-     ``{"ok": true, "device": {...}}``.
+ 12. prints the launches of ``fps`` traced in 8 profiler windows
+     (``profiler_windows``: the empty windows that ``device_ms`` and
+     ``kernel_sum_ms`` trace again), each phase's seconds and the total
+     (``[time]``), the kernel table as one JSON line, the card line, and
+     last ``{"ok": true, "device": {...}}``.
 
 The device-time breakdown of the same slices is ``profile_torch.py``.
 """
@@ -400,36 +412,46 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
+PROFILER_WINDOWS = 16  # traced windows a measurement may take
+
+
+def _traced(fn, calls):
+    """The device events of ``calls`` calls of ``fn`` in one torch.profiler
+    window, which opens and closes with 50 ms of host sleep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_ms(fn, *kernels, reps=5):
     """Median device duration (torch.profiler) of one call of ``fn``: the
     launches of the kernels whose names hold one of ``kernels``, summed per
     call, over the last ``reps`` of ``reps + 2`` traced calls after a
     warm-up: the kernels alone, without the wrapper's host time that a
-    single call's CUDA events include. The tracer has been seen to drop
-    launches late in a long process (once 6 of 7 of a window; cause not
-    known): a window with fewer than ``reps`` of a kernel is traced again,
-    three such windows fail, and each window opens and closes with 50 ms
-    of host sleep, in case the drops are launches that the trace's clock
-    places outside the window."""
+    single call's CUDA events include. A window can trace fewer launches
+    than were made: late in the process, after the trainer's CUDA graphs
+    have run, every other window traces none (``profiler_windows``; cause
+    not known), and a window once traced 6 of 7. Such a window measures
+    nothing and is traced again, up to PROFILER_WINDOWS windows."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)
-            for _ in range(reps + 2):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.05)
+    for attempt in range(PROFILER_WINDOWS):
+        events = _traced(fn, reps + 2)
         per_kernel = []
         for kernel in kernels:
             traced = sorted((e.time_range.start,
                              e.time_range.elapsed_us() / 1e3)
-                            for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA
-                            and kernel in e.name)
+                            for e in events if kernel in e.name)
             if len(traced) > reps + 2:
                 raise AssertionError(f"device_ms: {len(traced)} launches of "
                                      f"{kernel} traced in {reps + 2} calls")
@@ -437,11 +459,31 @@ def device_ms(fn, *kernels, reps=5):
         counts = [len(d) for d in per_kernel]
         if min(counts) == reps:
             return statistics.median(sum(call) for call in zip(*per_kernel))
-        # a window where the tracer dropped launches measures nothing
         log(f"[device_ms] traced {counts} launches of {kernels} in "
-            f"{reps + 2} calls (window {attempt + 1} of 3)")
+            f"{reps + 2} calls (window {attempt + 1} of {PROFILER_WINDOWS})")
     raise AssertionError(f"device_ms: fewer than {reps} launches of "
-                         f"{kernels} traced in three windows")
+                         f"{kernels} traced in {PROFILER_WINDOWS} windows")
+
+
+def profiler_windows(n=8, reps=5):
+    """Launches of ``fps`` traced in each of ``n`` profiler windows of
+    ``reps`` calls: the windows that trace none (``device_ms``)."""
+    import torch
+
+    from sceneverse_tpu_torch.ops import sa_forward as sa
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    xyz = (torch.rand((32 * 80, 1024, 3), generator=g) - 0.5).cuda()
+
+    def fn():
+        return sa.fps(xyz, 32)
+
+    fn()
+    counts = [sum("sv_fps_kernel" in e.name for e in _traced(fn, reps))
+              for _ in range(n)]
+    log(f"[profiler] launches of fps traced in {n} windows of {reps} calls "
+        f"each: {counts}")
+    return counts
 
 
 def _err(got, want):
@@ -1478,18 +1520,27 @@ def _free():
 def kernel_sum_ms(fn):
     """(device ms, device events) of one call of ``fn`` after a warm-up:
     every kernel, copy and fill it put on the card, summed
-    (torch.profiler)."""
+    (torch.profiler). A window can lose events (``device_ms``): the call
+    is traced again until a window traces as many events as an earlier
+    one that traced any, up to PROFILER_WINDOWS windows."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+    seen = []
+    for attempt in range(PROFILER_WINDOWS):
+        events = _traced(fn, 1)
+        if events and len(events) in seen:
+            return (sum(e.time_range.elapsed_us() for e in events) / 1e3,
+                    len(events))
+        if seen or not events:
+            log(f"[kernel_sum_ms] {len(events)} device events traced, "
+                f"{seen} in the windows before (window {attempt + 1} of "
+                f"{PROFILER_WINDOWS})")
+        if events:
+            seen.append(len(events))
+    raise AssertionError(f"kernel_sum_ms: no two windows traced the same "
+                         f"device events in {PROFILER_WINDOWS}: {seen}")
 
 
 def remat_extra_fwd(cfg):
@@ -1896,6 +1947,32 @@ LOADER_BATCHES = {"workers_0": 3, "workers_4": 16}
 MATERIALIZED_STEPS = 6
 
 
+@contextlib.contextmanager
+def eval_loaders_in_process():
+    """The trainer's val and test loaders built with
+    ``dataloader.num_workers=0``, its train loader as configured: a
+    spawned 4-worker loader takes 30-45 s to start on the card's host, and
+    the data run's val and test splits are one batch each (for the smoke's
+    time budget, as FT_REDUCED does for the finetune runs)."""
+    import copy
+
+    from sceneverse_tpu_torch.trainer import build as trainer_build
+
+    real = trainer_build.build_dataloader
+
+    def build(cfg, split="train"):
+        if split != "train":
+            cfg = copy.deepcopy(cfg)
+            cfg.dataloader.num_workers = 0
+        return real(cfg, split)
+
+    trainer_build.build_dataloader = build
+    try:
+        yield
+    finally:
+        trainer_build.build_dataloader = real
+
+
 def data_args(root, extra=()):
     """``run_torch`` arguments of ``configs/final/all_pretrain.yaml`` as it
     stands, with only the data roots, one card, ground-truth objects (the
@@ -2296,7 +2373,8 @@ def phase_data(table):
         f"{'hash' if vocab == '__hash__' else vocab}")
     out = {"tree": DATA_TREE, "items": n_items, "tokenizer": vocab,
            "cpu_count": os.cpu_count()}
-    out["run"], trainer = _run_data("data", root, [])
+    with eval_loaders_in_process():
+        out["run"], trainer = _run_data("data", root, [])
     pnet = trainer.model.point_encoder.point_feature_extractor
     t0 = time.perf_counter()
     stores = {f"{n}_{s}": str(ensure_materialized(cfg, n, s))
@@ -2387,7 +2465,7 @@ FT_REDUCED = ["dataloader.num_workers=0"]
 # each run's train loader cut to its first FT_STEPS batches (Nr3D's epoch
 # is 7 batches of 256, about 9 s each at 0 workers), for the smoke's time
 # budget
-FT_STEPS = 3
+FT_STEPS = 2
 
 
 def write_finetune_tree(root):
@@ -5079,26 +5157,41 @@ def main():
     card = phase_env()
     import torch
 
-    phase_build()
-    preprocess = phase_preprocess(card)
-    tools = phase_tools(card)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    t_main = time.perf_counter()
+    timed("build", phase_build)
+    preprocess = timed("preprocess", phase_preprocess, card)
+    tools = timed("tools", phase_tools, card)
     table = Table()
-    phase_sa(table)
-    phase_sample_group(table)
-    phase_mha(table)
-    phase_sa_train(table)
-    phase_flash(table)
-    slices = {name: phase_slice(name, extra, env)
-              for name, (extra, _, env) in PATHS.items()}
-    entry = phase_entry(slices["frozen_exact"])
-    trainer = phase_trainer()
-    graphs = phase_graphs()
-    data = phase_data(table)
-    finetune = phase_finetune(table, data["run"]["exp_dir"])
-    objcls = phase_objcls(table)
-    variants = phase_variants()
-    ddp = phase_ddp()
-    mp = phase_mp(card)
+    for name, fn in (("sa", phase_sa), ("sample_group", phase_sample_group),
+                     ("mha", phase_mha), ("sa_train", phase_sa_train),
+                     ("flash", phase_flash)):
+        timed(name, fn, table)
+    slices = timed("slices", lambda: {
+        name: phase_slice(name, extra, env)
+        for name, (extra, _, env) in PATHS.items()})
+    entry = timed("entry", phase_entry, slices["frozen_exact"])
+    trainer = timed("trainer", phase_trainer)
+    graphs = timed("graphs", phase_graphs)
+    data = timed("data", phase_data, table)
+    finetune = timed("finetune", phase_finetune, table,
+                     data["run"]["exp_dir"])
+    objcls = timed("objcls", phase_objcls, table)
+    variants = timed("variants", phase_variants)
+    ddp = timed("ddp", phase_ddp)
+    mp = timed("mp", phase_mp, card)
+    # what device_ms and kernel_sum_ms trace again: this late in the
+    # process every other profiler window is empty
+    graphs["profiler_windows"] = profiler_windows()
+    seconds["total"] = time.perf_counter() - t_main
+    log(f"[time] s a phase: {json.dumps(seconds)}")
     paths = {p: s["launches"] for p, s in slices.items()}
     paths["trainer"] = trainer["run"]["launches"]
     for name in GRAPH_RUNS:
@@ -5152,7 +5245,8 @@ def main():
                    "graphs": graphs,
                    "data": data, "finetune": finetune, "objcls": objcls,
                    "variants": variants, "ddp": ddp, "mp": mp,
-                   "preprocess": preprocess, "tools": tools, "card": card},
+                   "preprocess": preprocess, "tools": tools, "card": card,
+                   "seconds": seconds},
                   f,
                   indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
