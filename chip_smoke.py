@@ -90,11 +90,17 @@ Phases (any failure exits non-zero; nothing is caught):
      launches, a lower peak under "full"); gradient accumulation over 4
      micro-steps at k = 2 (parameters still between updates, two updates,
      the LR schedule over total // 2, the first update equal to one taken
-     by hand); VERDICT #2's ``OpenVocabTrainer`` run, 40 steps, cut after
-     epoch 5 and resumed by a fresh trainer from ``ckpt_5.pth`` (the
+     by hand); VERDICT #2's ``OpenVocabTrainer`` run, 32 steps, cut after
+     epoch 4 and resumed by a fresh trainer from ``ckpt_4.pth`` (the
      resumed state bit-equal to the saved one, a falling loss, a rising
      train accuracy; launch counts set to 0 before and read after); and
-     the ``profile.enabled``, ``debug.nans`` and ``eval.save`` switches.
+     the ``profile.enabled``, ``debug.nans`` and ``eval.save`` switches,
+     ``profile.enabled`` also at ``solver.steps_per_dispatch=2`` over an
+     eager chunk, the capturing chunk and a replay (``profile_k2``: the
+     trace's ``mha_fwd``, ``mha_bwd``, ``fps`` and ``sv_sa_fwd_kernel``
+     events equal to the launches counted in those steps, as the
+     ``TraceWindow`` that ``utils/profiling.py::trace`` yields counts them;
+     an incomplete window is traced again by the trainer).
   6b. graphs (``phase_graphs``): the JAX trainer's dispatch paths as CUDA
      graphs, frozen and unfrozen_fused at full width (f32, dropout on) and
      frozen at k = 2 / K = 3: GRAPH_BATCHES eager steps against the same
@@ -102,7 +108,12 @@ Phases (any failure exits non-zero; nothing is caught):
      (parameters and logged rows within GRAPH_TOL), two replays on one
      chunk drawing other masks, each step's CUDA-event ms eager and
      graphed, the peak at K = 1 and K, one H2D copy a chunk, and the fused
-     val split with a tail batch equal to the eager loop.
+     val split with a tail batch equal to the eager loop; then
+     ``model.remat=true`` under "full" and "dots" at K = 3 (``graph_remat``:
+     eager against graphed bit for bit, the recompute's ``mha_fwd``
+     launches as ``remat_extra_fwd`` counts them, two replays drawing other
+     masks, the graphed peak under "full" below the no-remat graphed
+     peak, the remat tape's bytes, each step's CUDA-event ms).
   7. data (``phase_data``): ``configs/final/all_pretrain.yaml`` as it
      stands (batch 64, 4 spawned train-loader workers, the five families'
      datasets and wrappers; the one-batch val and test loaders in this
@@ -195,8 +206,12 @@ Phases (any failure exits non-zero; nothing is caught):
  11. data parallel (``phase_ddp``): the card is one device and NCCL
      refuses two ranks on one device, so ``run_torch.main`` runs the frozen
      slice (3 steps, val and test over 97 items), the unfrozen_fused
-     slice (2 steps) and the ObjCls run (2 steps, literal route) in child
-     processes of this script (``--ddp-child``):
+     slice (2 steps) and the ObjCls run (2 steps, literal route), at one
+     step a dispatch, and the frozen slice at ``solver.steps_per_dispatch``
+     DDP_K = 2 (7 steps: three chunks through ``train_forward_backward_k``
+     and a tail step; the world of 1 captures the second chunk's graph and
+     replays it for the third, the gloo ranks run each chunk's steps in a
+     row), in child processes of this script (``--ddp-child``):
      a world of 1 over NCCL at batch 32, then a world of 2 over gloo, both
      ranks on cuda:0, at 16 a rank (gloo reduces CUDA tensors through host
      memory); every dropout at 0. The two worlds' per-step losses, step-1
@@ -1471,16 +1486,18 @@ def _run_entry(exact):
 
 
 # ------------------------------------------------------------ trainer phase
-# the multi-step run of the trainer phase: 4 steps an epoch, 10 epochs (40
-# steps), val every 5 epochs, ckpt_N every 5; trainer A is cut after epoch
+# the multi-step run of the trainer phase: 4 steps an epoch, 8 epochs (32
+# steps), val every 4 epochs, ckpt_N every 4; trainer A is cut after epoch
 # TRAINER_CUT, as a preemption would cut it, and a fresh trainer B resumes;
-# 40 steps (formerly 80, and 240 before that) keep the whole smoke within
-# its time budget, and the loss and train-accuracy checks compare the
-# means of their first and last 20 (at 80 steps the means of steps 1-20
-# and 21-40 were 14.578 and 9.130, the target metric's 0.025 and 0.161)
-TRAINER_RUN = ["data.synthetic_size=128", "solver.epochs=10",
-               "solver.epochs_per_eval=5", "solver.epochs_per_save=5"]
-TRAINER_CUT = 5
+# 32 steps (formerly 40, 80, and 240 before that) keep the whole smoke
+# within its time budget, and the loss and train-accuracy checks compare
+# the means of their first and last TRAINER_HALF steps (at 40 steps the
+# means of steps 1-20 and 21-40 were 14.654 and 9.726, the target
+# metric's 0.022 and 0.167)
+TRAINER_RUN = ["data.synthetic_size=128", "solver.epochs=8",
+               "solver.epochs_per_eval=4", "solver.epochs_per_save=4"]
+TRAINER_CUT = 4
+TRAINER_HALF = 16
 # remat against no remat, per gradient tensor, on max|diff| / max|no remat|;
 # the trainer's accumulated (clipped) gradient at its first update against
 # the hand-taken mean's, per tensor, on max|diff| / max|hand|
@@ -1762,18 +1779,18 @@ def trainer_accum():
             "param_share_off_vs_hand": share}
 
 
-def _means(rows, key, n=20):
+def _means(rows, key, n):
     return [statistics.mean(r[key] for r in rows[i:i + n])
             for i in range(0, len(rows), n)]
 
 
 def trainer_run():
-    """VERDICT #2: ``OpenVocabTrainer`` for 40 steps with a resume at step
-    20. Trainer A runs epochs 1-5 and writes ``ckpt_5.pth``; a fresh
+    """VERDICT #2: ``OpenVocabTrainer`` for 32 steps with a resume at step
+    16. Trainer A runs epochs 1-4 and writes ``ckpt_4.pth``; a fresh
     trainer B with ``resume=True`` must then hold A's parameters, AdamW
-    moments, optimizer step and tracker bit for bit, and runs epochs 6-10.
+    moments, optimizer step and tracker bit for bit, and runs epochs 5-8.
     The loss falls and the train-side PretrainEval target metric rises
-    (means of the first and last 20 steps); the val ScanReferEval metrics
+    (means of the first and last TRAINER_HALF steps); the val ScanReferEval metrics
     are printed: the synthetic val split is random and disjoint from train.
     The launch counts are set to 0 before A and read after B."""
     import shutil
@@ -1828,18 +1845,18 @@ def trainer_run():
     steps = [r["step"] for r in rows]
     if steps != list(range(1, n_steps + 1)):
         raise AssertionError(f"{tag} train rows at steps {steps}")
-    loss = _means(rows, "total_loss")
-    target = _means(rows, "target_metric")
+    loss = _means(rows, "total_loss", TRAINER_HALF)
+    target = _means(rows, "target_metric", TRAINER_HALF)
     log(f"{tag} B: epochs {TRAINER_CUT + 1}-{b.epochs} in {t_b:.1f} s "
         f"(host clock); "
         f"launches over A and B {launches}")
-    log(f"{tag} total loss, mean of each 20 steps: "
+    log(f"{tag} total loss, mean of each {TRAINER_HALF} steps: "
         f"{[round(x, 4) for x in loss]}")
     for key in ("target_metric", "lang_cls_acc_mask", "og_acc",
                 "obj_cls_post_acc", "obj_cls_raw_acc"):
         if key in rows[0]:
-            log(f"{tag} train {key}, mean of each 20 steps: "
-                f"{[round(x, 4) for x in _means(rows, key)]}")
+            log(f"{tag} train {key}, mean of each {TRAINER_HALF} steps: "
+                f"{[round(x, 4) for x in _means(rows, key, TRAINER_HALF)]}")
     for r in hist_a["val"] + b.history["val"]:
         log(f"{tag} val {json.dumps({k: round(v, 4) for k, v in r.items()})}")
     if not loss[-1] < loss[0]:
@@ -1861,31 +1878,34 @@ def trainer_switches():
     card's kernels and ends epoch 0 after 3 steps; ``debug.nans=true`` lets a
     clean step through and raises on a NaN put into the batch;
     ``eval.save=true`` writes ``results.json`` with one row per val item."""
-    from pathlib import Path
-
     import torch
 
     from sceneverse_tpu_torch.trainer.build import to_device
+    from sceneverse_tpu_torch.trainer.default_trainer import PROFILE_WINDOWS
 
     tag = "[trainer switches]"
     out = {}
-    t = _trainer("profile", ["profile.enabled=true", "profile.steps=3"])
-    t.train_step(0)
-    traces = sorted((Path(t.cfg.exp_dir) / "profile").glob("*.json"))
-    if t.global_step != 3 or len(traces) != 1:
-        raise AssertionError(f"{tag} profile: {t.global_step} steps, traces "
-                             f"{traces}")
-    with open(traces[0]) as f:
+    # batches for every window the trainer may trace
+    t = _trainer("profile", ["profile.enabled=true", "profile.steps=3",
+                             f"data.synthetic_size={32 * 3 * PROFILE_WINDOWS}"])
+    windows = profiled_epoch(t)
+    path = windows[-1].path
+    with open(path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     names = {e["name"] for e in kernels}
-    log(f"{tag} profile: {traces[0].name}, {os.path.getsize(traces[0])} "
-        f"bytes, {len(kernels)} kernel events, e.g. "
-        f"{sorted(n for n in names if 'mha' in n)[:2]}")
-    if not kernels:
-        raise AssertionError(f"{tag} profile: no kernel in the trace")
+    log(f"{tag} profile: {path.name}, {os.path.getsize(path)} bytes, "
+        f"{len(kernels)} kernel events, e.g. "
+        f"{sorted(n for n in names if 'mha' in n)[:2]}; windows "
+        f"{len(windows)}")
+    if t.global_step != 3 * len(windows) or not kernels:
+        raise AssertionError(f"{tag} profile: {t.global_step} steps, "
+                             f"{len(kernels)} kernels in {path}")
     out["profile_kernel_events"] = len(kernels)
+    out["profile_windows"] = len(windows)
     del t, events, kernels
+    _free()
+    out["profile_k2"] = profile_k2()
     _free()
 
     t = _trainer("nans", ["debug.nans=true"])
@@ -1924,6 +1944,63 @@ def trainer_switches():
         raise AssertionError(f"{tag} eval.save: rows {len(results)}")
     out["eval_save_rows"] = len(results)
     return out
+
+
+PROFILE_K2_STEPS = 6  # chunk 1 eager, 2 captured and replayed, 3 replayed
+# the kernels profile_k2 holds to their launches (utils/profiling.py)
+PROFILE_K2_KERNELS = ("sv_mha_fwd_kernel", "sv_mha_bwd_", "sv_fps_kernel",
+                      "sv_sa_fwd_kernel")
+
+
+def profiled_epoch(t):
+    """``t.train_step(0)`` under ``profile.enabled`` from an empty profile
+    directory: the ``TraceWindow`` of every window the trainer traced (a
+    window that traced fewer of the port's kernels than it launched is
+    traced again, ``default_trainer.py``); the last must be complete and
+    hold kernels."""
+    import shutil
+    from pathlib import Path
+
+    shutil.rmtree(Path(t.cfg.exp_dir) / "profile", ignore_errors=True)
+    t.train_step(0)
+    windows = t.profile_windows
+    if not windows or not windows[-1].complete or not windows[-1].kernels:
+        raise AssertionError(f"profile: windows {[w.__dict__ for w in windows]}")
+    return windows
+
+
+def profile_k2():
+    """``profile.enabled`` at ``solver.steps_per_dispatch=2`` on the frozen
+    slice: the first PROFILE_K2_STEPS steps of epoch 0 under
+    ``utils/profiling.py::trace`` (an eager chunk, the chunk that captures
+    the graph, a replay), which writes one Chrome trace; its
+    PROFILE_K2_KERNELS events must be exactly the launches the wrappers and
+    replays counted in that window, and the run ends epoch 0 there. A
+    window the installed torch.profiler leaves incomplete is traced again
+    over the next steps (``default_trainer.py``); then the last window is
+    held to its own launches."""
+    from sceneverse_tpu_torch.trainer.default_trainer import PROFILE_WINDOWS
+
+    tag = "[trainer switches] profile K=2"
+    t = _trainer("profile_k2", [
+        "profile.enabled=true", f"profile.steps={PROFILE_K2_STEPS}",
+        "solver.steps_per_dispatch=2",
+        f"data.synthetic_size={32 * PROFILE_K2_STEPS * PROFILE_WINDOWS}"])
+    windows = profiled_epoch(t)
+    window = windows[-1]
+    n_graphs = sum(g is not None for g in t._graphs.values())
+    if (t.global_step != PROFILE_K2_STEPS * len(windows) or n_graphs != 1):
+        raise AssertionError(f"{tag}: {t.global_step} steps, {n_graphs} "
+                             f"graphs, {len(windows)} windows")
+    traced = {k: window.traced[k] for k in PROFILE_K2_KERNELS}
+    want = {k: window.expected[k] for k in PROFILE_K2_KERNELS}
+    log(f"{tag}: {window.path.name}, {window.kernels} kernel events; traced "
+        f"{traced}, launched {want}, graphs {n_graphs}, windows "
+        f"{len(windows)}")
+    if traced != want or not all(want.values()):
+        raise AssertionError(f"{tag}: traced {traced}, launched {want}")
+    return {"launches": dict(window.launches), "traced": traced,
+            "kernel_events": window.kernels, "windows": len(windows)}
 
 
 # --------------------------------------------------------------- data phase
@@ -3234,13 +3311,20 @@ def phase_objcls(table):
 # phase runs two worlds through run_torch.main in child processes: the
 # reference, a world of 1 over NCCL at the global batch, then a world of 2
 # over gloo on cuda:0 at half the batch a rank. Each child joins its world
-# by mesh.init_from_env from torchrun's variables and drives both runs.
+# by mesh.init_from_env from torchrun's variables and drives every run.
 # frozen: 3 steps (97 items at 32: the drop-last loader), then val and test
 # over 97 items (odd: shards of 49 and 48); unfrozen_fused: 2 steps (65);
 # objcls: the ObjCls run (OBJCLS_CFG, literal route) for 2 steps (65
-# items), the model of the reference's SyncBatchNorm. Each run: (its
-# ObjCls config name, or None for SLICE_ARGS; overrides; environment; the
-# kernels its path must launch).
+# items), the model of the reference's SyncBatchNorm; these three at one
+# step a dispatch, the trainer's default. frozen_k2: the frozen run at
+# DDP_K steps a dispatch over 7 steps (225 items): three chunks through
+# train_forward_backward_k and a tail step; the world of 1 runs the first
+# chunk eagerly, captures the second and replays it, replays it again for
+# the third, and its eval runs through eval_fused's graphs; the gloo ranks
+# run each chunk's steps in a row without a graph. Each run: (its ObjCls
+# config name, or None for SLICE_ARGS; overrides; environment; the kernels
+# its path must launch).
+DDP_K = 2
 DDP_RUNS = {
     "frozen": (None, ["data.synthetic_size=97"], {}, PATHS["frozen"][1]),
     "unfrozen_fused": (None, ["model.vision.args.freeze=False",
@@ -3249,6 +3333,9 @@ DDP_RUNS = {
     "objcls": ("objcls", ["data.synthetic_size=65", "solver.epochs=1",
                           "solver.optim.args.eps=1e-6"], {},
                tuple(OBJCLS_PER_FORWARD)),
+    "frozen_k2": (None, ["data.synthetic_size=225",
+                         f"solver.steps_per_dispatch={DDP_K}"], {},
+                  PATHS["frozen"][1]),
 }
 DDP_WORLDS = ((1, "nccl"), (2, "gloo"))
 # 2 ranks against 1, dropout off. frozen: f32 summed in another order
@@ -3290,6 +3377,16 @@ DDP_TOL = {
                "param_lr": 2.0, "param_share": 1.0, "stat1": 1e-5,
                "stat1_exact": 0.0, "stat": 1e-5, "eval_abs": 0.01},
 }
+# frozen_k2: frozen's bounds, but over 7 updates its parameters spread
+# apart even between two runs of one world (on the H100: a world of 1
+# against a world of 1, 0.40 lr x steps and 9.8e-4 of a tensor beyond
+# 0.01; a world of 2 against a world of 2, 0.32 and 2.4e-5; CUDA backwards
+# round about 1e-7 apart across processes and Adam normalises the noisy
+# small gradients of the 1e-5-lr word embeddings into steps of about lr):
+# held to Adam's bound of 2 lr an update, as unfrozen_fused and objcls,
+# and at most 1% of a tensor's elements beyond 0.01; its losses, step-1
+# gradient, statistics and eval metrics stay at frozen's bounds
+DDP_TOL["frozen_k2"] = dict(DDP_TOL["frozen"], param_lr=2.0, param_share=1e-2)
 DDP_EXACT_STATS = ("point_encoder.point_feature_extractor.encoder.0.",
                    "point_encoder.point_feature_extractor.encoder.1.mlps.0."
                    "layer0.")
@@ -3320,10 +3417,29 @@ def ddp_child(spec):
     build_trainer = tbuild.build_trainer
 
     def build(cfg, device=None):
-        held["trainer"] = build_trainer(cfg, device=device)
-        return held["trainer"]
+        t = held["trainer"] = build_trainer(cfg, device=device)
+        real = t.train_forward_backward_k
+        held["chunks"] = []
+        t.train_forward_backward_k = lambda d, f: held["chunks"].append(
+            len(d)) or real(d, f)
+        return t
 
     tbuild.build_trainer = build
+    replay, capture = tbuild._Graph.replay, tbuild.BaseTrainer._capture
+
+    def counted_replay(self, trainer):
+        replays = held.setdefault("replays", {})
+        replays[self.kind] = replays.get(self.kind, 0) + 1
+        return replay(self, trainer)
+
+    def named_capture(self, fn, key):  # key[0]: "train" or "eval"
+        held.setdefault("graphs", []).append(key[0])
+        g = capture(self, fn, key)
+        g.kind = key[0]
+        return g
+
+    tbuild._Graph.replay = counted_replay
+    tbuild.BaseTrainer._capture = named_capture
     reduce = mesh.all_reduce_flat
 
     def reduce_and_keep(tensors):
@@ -3373,7 +3489,9 @@ def ddp_child(spec):
                 "eval_batches": sum(len(ld) for s in ("val", "test")
                                     for ld in eval_loaders(trainer, s)),
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                "rank_max_diff": float(rank_diff)}
+                "rank_max_diff": float(rank_diff),
+                "chunks": held["chunks"], "replays": held.get("replays", {}),
+                "graphs": held.get("graphs", [])}
         lrs = {id(p): g["base_lr"] for g in trainer.optimizer.opt.param_groups
                for p in g["params"]}
         if r == 0:
@@ -3512,14 +3630,16 @@ def _ddp_compare(name, ref_dir, dist_dir, ref, ranks):
 
 def phase_ddp():
     """Data parallelism on the one card: the frozen, the unfrozen_fused
-    (SLICE_ARGS widths) and the ObjCls run (DDP_RUNS, f32, dropout off) in
-    a world of 1 over NCCL at batch 32, then in a world of 2 over gloo on
-    cuda:0 at 16 a rank; the 2-rank world against the 1-rank one
-    (DDP_TOL), every rank bit-equal to rank 0, every kernel of each path
-    launched on each rank (the fused ``sa_*`` kernels exactly as often per
-    step as three fused levels need, ObjCls's exactly as often per step
-    and eval batch as its literal route needs), launch counts and
-    host-clock step times per rank."""
+    (SLICE_ARGS widths) and the ObjCls run at one step a dispatch and the
+    frozen run at DDP_K (DDP_RUNS, f32, dropout off) in a world of 1 over
+    NCCL at batch 32, then in a world of 2 over gloo on cuda:0 at 16 a
+    rank; the 2-rank world against the 1-rank one (DDP_TOL), every rank
+    bit-equal to rank 0, every kernel of each path launched on each rank
+    (the fused ``sa_*`` kernels exactly as often per step as three fused
+    levels need, ObjCls's exactly as often per step and eval batch as its
+    literal route needs), the K-step chunks of each rank and the graphs
+    only the world of 1 captures and replays, launch counts and host-clock
+    step times per rank."""
     t_phase = time.perf_counter()
     for base, *_ in DDP_RUNS.values():  # the children read these
         if base is not None:
@@ -3527,7 +3647,7 @@ def phase_ddp():
     worlds = {}
     for world, backend in DDP_WORLDS:
         worlds[world] = _ddp_world(world, backend)
-        log(f"[ddp] world {world} over {backend}: both runs in "
+        log(f"[ddp] world {world} over {backend}: every run in "
             f"{worlds[world][2]:.1f} s (host clock, process starts "
             "included)")
     (ref_dir, ref_info, _), (dist_dir, dist_info, _) = worlds[1], worlds[2]
@@ -3546,7 +3666,9 @@ def phase_ddp():
                     f"step_s {[round(s, 4) for s in st]} (host clock), "
                     f"steady {statistics.mean(st[1:]):.4f} s, eval "
                     f"batches {r['eval_batches']}, peak "
-                    f"{r['peak_mem_gib']:.2f} GiB, launches {r['launches']}")
+                    f"{r['peak_mem_gib']:.2f} GiB, launches {r['launches']}, "
+                    f"K-step chunks {r['chunks']}, graphs {r['graphs']}, "
+                    f"replays {r['replays']}")
         for r in ref + ranks:
             where = f"world {r['world']} rank {r['rank']}"
             missing = [k for k in DDP_RUNS[name][3]
@@ -3566,6 +3688,18 @@ def phase_ddp():
                             r["launches"].get(k, 0), per * n)
             if r["rank_max_diff"] != 0.0:
                 bad[f"{where} state against rank 0"] = r["rank_max_diff"]
+            k = DDP_K if name == "frozen_k2" else 1
+            n_rows = len(r["rows"])
+            if r["chunks"] != ([k] * (n_rows // k) if k > 1 else []):
+                bad[f"{where} K-step chunks"] = (r["chunks"], n_rows)
+            # at K = 2 the world of 1 replays the train chunk's graph for
+            # chunks 2 and 3 (its eval splits replay graphs at every K); no
+            # rank of the world of 2 captures
+            graphed = (r["world"] == 1 and k > 1)
+            if (("train" in r["graphs"]) != graphed
+                    or (r["replays"].get("train", 0) >= 2) != graphed
+                    or (r["world"] > 1 and (r["graphs"] or r["replays"]))):
+                bad[f"{where} graphs"] = (r["graphs"], r["replays"])
             if len(r["rows"]) != len(ref[0]["rows"]):
                 bad[f"{where} steps"] = len(r["rows"])
         log(f"{tag} world 2 (gloo) against world 1 (nccl): " + ", ".join(
@@ -4863,6 +4997,11 @@ GRAPH_TOL = 1e-6
 GRAPH_RUNS = {"frozen": ([], {}),
               "unfrozen_fused": (["model.vision.args.freeze=False"],
                                  FUSED_ENV)}
+# model.remat under graphs (frozen, dropout on): K = 3 over 6 batches, chunk
+# 1 eager, 2 captured (then replayed); graphed against eager bit for bit
+GRAPH_REMAT_K = 3
+GRAPH_REMAT_BATCHES = 6
+GRAPH_REMAT = ("full", "dots")
 
 
 def _graph_state(t):
@@ -5062,6 +5201,121 @@ def graph_equivalence(name, extra, env, accum=None):
     return res
 
 
+def graph_remat(policy, peak_none):
+    """``model.remat=true`` under ``policy`` at K = GRAPH_REMAT_K: from one
+    saved state, GRAPH_REMAT_BATCHES eager micro-steps against the same
+    batches through ``train_forward_backward_k`` (chunk 1 eager, 2
+    captured, then replays), bit for bit (parameters, every logged loss and
+    metric); the recompute's ``mha_fwd`` launches as ``remat_extra_fwd``
+    counts them a step, eager and graphed; two replays on one chunk draw
+    other masks; the peak of the graphed run (under "full" below
+    ``peak_none``, the no-remat graphed run's); the remat tape's bytes a
+    step; each step's CUDA-event ms eager and graphed."""
+    import torch
+
+    from sceneverse_tpu_torch.modules import utils as mutils
+    from sceneverse_tpu_torch.ops import _build
+
+    K, n = GRAPH_REMAT_K, GRAPH_REMAT_BATCHES
+    tag = f"remat {policy} K={K}"
+    t = _trainer(f"graphs_remat_{policy}", [
+        "model.remat=true", f"model.remat_policy={policy}",
+        f"data.synthetic_size={32 * n + 8}",
+        f"solver.steps_per_dispatch={K}"])
+    hosts = [b for _, b in zip(range(n), t.data_loaders["train"])]
+    fused = t._fusable_metrics(t._train_evaluator())
+    per_step = {"mha_fwd": DATA_PER_FORWARD["mha_fwd"]
+                + remat_extra_fwd(t.cfg), "mha_bwd": DATA_PER_STEP["mha_bwd"]}
+    state = _graph_state(t)
+    # the tape of one eager step: the masks (bool) and seeds it keeps
+    tapes = []
+    init = mutils._Tape.__init__
+
+    def taped_init(self):
+        init(self)
+        tapes.append(self)
+
+    mutils._Tape.__init__ = taped_init
+    try:
+        t.train_forward_backward(t.device_batch(hosts[0]), fused)
+    finally:
+        mutils._Tape.__init__ = init
+    tape_mb = sum(v.numel() * v.element_size() for tp in tapes
+                  for v in tp.draws) / 2 ** 20
+    del tapes
+    _graph_restore(t, state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    eager = []
+    for h in hosts:
+        m, l = t.train_forward_backward(t.device_batch(h), fused)
+        eager.append({k: float(v) for k, v in {**l, **m}.items()})
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches_eager = {k: _build.LAUNCHES.get(k, 0) for k in per_step}
+    want_p = _graph_params(t)
+    _graph_restore(t, state)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    graphed = []
+    for c in range(0, n, K):
+        graphed += _rows_k(*t.train_forward_backward_k(hosts[c:c + K], fused))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(_build.LAUNCHES)
+    got_p = _graph_params(t)
+    n_graphs = sum(g is not None for g in t._graphs.values())
+    rel = max(float((got_p[k] - w).abs().max()) for k, w in want_p.items())
+    worst = max(abs(g[k] - w[k]) for w, g in zip(eager, graphed) for k in w)
+    want_l = {k: v * n for k, v in per_step.items()}
+    log(f"[graphs {tag}] {n} steps: parameters max |graphed - eager| "
+        f"{rel!r}, rows worst {worst!r} (bit for bit); graphs {n_graphs}; "
+        f"launches eager {launches_eager}, graphed {launches} (expected "
+        f"{want_l}: {per_step['mha_fwd']} mha_fwd a step, "
+        f"{remat_extra_fwd(t.cfg)} of them the recompute's); peak eager "
+        f"{peak_eager:.3f} GiB, graphed {peak:.3f} GiB (no remat graphed "
+        f"{peak_none:.3f}); tape {tape_mb:.1f} MiB a step")
+    if not (rel == 0.0 and worst == 0.0 and len(graphed) == n
+            and n_graphs == 1):
+        raise AssertionError(f"graphs {tag}: eager and graphed differ "
+                             f"(params {rel}, rows {worst}, {n_graphs} "
+                             "graphs)")
+    if launches_eager != want_l or {k: launches.get(k, 0)
+                                    for k in per_step} != want_l:
+        raise AssertionError(f"graphs {tag}: launches {launches_eager} / "
+                             f"{launches}, expected {want_l}")
+    if policy == "full" and not peak < peak_none:
+        raise AssertionError(f"graphs {tag}: graphed peak {peak} GiB not "
+                             f"below no remat's {peak_none}")
+    a = _rows_k(*t.train_forward_backward_k(hosts[:K], fused))
+    b = _rows_k(*t.train_forward_backward_k(hosts[:K], fused))
+    if a[0]["total_loss"] == b[0]["total_loss"]:
+        raise AssertionError(f"graphs {tag}: two replays drew one mask")
+    res = {"param_max_abs": rel, "rows_worst": worst, "peak_gib": peak,
+           "peak_gib_eager": peak_eager, "tape_mib": tape_mb,
+           "launches": launches, "graphs": n_graphs}
+    torch.use_deterministic_algorithms(False)
+    try:
+        t._graphs = {}
+        for _ in range(2):
+            t.train_forward_backward_k(hosts[:K], fused)
+        chunks = [hosts[c:c + K] for c in range(0, n, K)]
+        res["step_ms_eager"] = cuda_ms(lambda: [
+            t.train_forward_backward(t.device_batch(h), fused)
+            for h in hosts], reps=2) / n
+        res["step_ms_graphed"] = cuda_ms(lambda: [
+            t.train_forward_backward_k(c, fused) for c in chunks],
+            reps=2) / n
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    log(f"[graphs {tag}] step {res['step_ms_eager']:.3f} ms eager, "
+        f"{res['step_ms_graphed']:.3f} ms graphed (CUDA events)")
+    del t
+    _free()
+    return res
+
+
 def _head(batch, n):
     """The first ``n`` items of a host batch."""
     B = len(batch["obj_fts"])
@@ -5134,6 +5388,9 @@ def phase_graphs():
         out = {name: graph_equivalence(name, extra, env)
                for name, (extra, env) in GRAPH_RUNS.items()}
         out["accum"] = graph_equivalence("frozen", [], {}, accum=GRAPH_ACCUM)
+        for policy in GRAPH_REMAT:
+            out[f"remat_{policy}"] = graph_remat(
+                policy, out["frozen"]["peak_gib_k"])
     finally:
         torch.use_deterministic_algorithms(False)
     out["seconds"] = time.time() - t0
@@ -5142,8 +5399,8 @@ def phase_graphs():
 
 
 def phase_trainer():
-    """The trainer: remat, accumulation, the 80-step run with a resume at
-    step 40, and the profile / NaN / eval.save switches."""
+    """The trainer: remat, accumulation, the 32-step run with a resume at
+    step 16, and the profile / NaN / eval.save switches."""
     out = {}
     for name, sub in (("remat", trainer_remat), ("accum", trainer_accum),
                       ("run", trainer_run), ("switches", trainer_switches)):
@@ -5196,6 +5453,9 @@ def main():
     paths["trainer"] = trainer["run"]["launches"]
     for name in GRAPH_RUNS:
         paths[f"graphs_{name}"] = graphs[name]["launches"]
+    for policy in GRAPH_REMAT:
+        paths[f"graphs_remat_{policy}"] = graphs[f"remat_{policy}"]["launches"]
+    paths["profile_k2"] = trainer["switches"]["profile_k2"]["launches"]
     paths["data"] = data["run"]["launches"]
     paths["data_materialized"] = data["materialized"]["launches"]
     for name, run in finetune["runs"].items():

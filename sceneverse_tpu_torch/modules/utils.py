@@ -6,6 +6,7 @@ biases, unit LayerNorm), activations."""
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -50,8 +51,8 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty(x.shape, device=x.device).bernoulli_(
-            keep, generator=self.generator)
+        mask = _taped(lambda: torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=self.generator), keep=torch.Tensor.bool)
         return x * mask.to(x.dtype) / keep
 
 
@@ -67,8 +68,9 @@ class AttentionSeed(nn.Module):
 
     def draw(self) -> torch.Tensor:
         g = self.seed_generator
-        return torch.randint(0, 2 ** 31 - 1, (1,), generator=g,
-                             device=g.device if g is not None else None)
+        return _taped(lambda: torch.randint(
+            0, 2 ** 31 - 1, (1,), generator=g,
+            device=g.device if g is not None else None))
 
 
 def set_generators(model: nn.Module, seed: int, device,
@@ -119,21 +121,47 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-class _Replay:
-    """The recompute context of ``remat``: the module's random streams as
-    they stood at the tower's entry for the recompute, then back where they
-    were just before it; the running statistics of its training-mode
-    BatchNorms back as they were, so the recompute moves them no second
-    time. ``inner`` is the policy's own recompute context."""
+class _Tape:
+    """The random draws of one rematerialised call, in order: recorded by
+    its forward, handed back one by one to each recompute (``replay``)."""
 
-    def __init__(self, gens, entry, stats, inner):
-        self.gens, self.entry, self.stats, self.inner = gens, entry, stats, inner
+    def __init__(self):
+        self.draws = []
+        self.replay = None
+
+
+_ACTIVE = threading.local()  # .tape: the tape of the remat this thread runs
+
+
+def _taped(draw, keep=None):
+    """``draw()``, outside a rematerialised call; inside one, the forward
+    draws and puts the value (or ``keep(value)``, a smaller form that
+    computes the same) on the call's tape, and the recompute takes it back
+    from there and draws nothing."""
+    tape = getattr(_ACTIVE, "tape", None)
+    if tape is None:
+        return draw()
+    if tape.replay is not None:
+        value = next(tape.replay, None)
+        if value is None:
+            raise RuntimeError("remat: the recompute drew more random values "
+                               "than the forward")
+        return value
+    value = draw()
+    tape.draws.append(value if keep is None else keep(value))
+    return value
+
+
+class _Taping:
+    """The forward context of ``remat``: the call's draws go on ``tape``;
+    ``inner`` is the policy's own forward context."""
+
+    def __init__(self, tape, inner):
+        self.tape, self.inner = tape, inner
 
     def __enter__(self):
-        self.before = [g.get_state() for g in self.gens]
-        self.kept = [t.clone() for t in self.stats]
-        for g, state in zip(self.gens, self.entry):
-            g.set_state(state)
+        self.outer = getattr(_ACTIVE, "tape", None)
+        _ACTIVE.tape = self.tape
         self.inner.__enter__()
         return self
 
@@ -141,8 +169,30 @@ class _Replay:
         try:
             return self.inner.__exit__(*exc)
         finally:
-            for g, state in zip(self.gens, self.before):
-                g.set_state(state)
+            _ACTIVE.tape = self.outer
+
+
+class _Replay(_Taping):
+    """The recompute context of ``remat``: the forward's draws handed back
+    in order (the same dropout masks and kernel seeds, no generator read,
+    set or moved); the running statistics of the module's training-mode
+    BatchNorms copied back as they were, so the recompute moves them no
+    second time. Device copies only: it runs inside a CUDA graph capture."""
+
+    def __init__(self, tape, stats, inner):
+        super().__init__(tape, inner)
+        self.stats = stats
+
+    def __enter__(self):
+        self.kept = [t.clone() for t in self.stats]
+        self.tape.replay = iter(self.tape.draws)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self.tape.replay = None
             with torch.no_grad():
                 for t, kept in zip(self.stats, self.kept):
                     t.copy_(kept)
@@ -155,21 +205,21 @@ def remat(module: nn.Module, fn, *args, policy: str = "full"):
     ``policy`` "full" (recompute everything) or "dots" (selective: keep the
     unbatched products' outputs, ``_dots_policy``).
 
-    The checkpoint replays only torch's default generators. The port's
-    dropouts and attention seeds draw from their own (``set_generators``),
-    so their states at the entry are kept and set again for the recompute
-    (the same dropout masks and kernel seeds as the forward), then put back
-    as they were before it (no later draw moves). JAX gets both from its
-    functional keys."""
+    The port's dropouts and attention seeds draw from their own generators
+    (``set_generators``), which the checkpoint does not replay. The forward
+    keeps its draws on a tape (dropout masks as bool, the (1,) int64 kernel
+    seeds) and the recompute takes them back, so it applies the forward's
+    masks and seeds and leaves every generator where the forward left it;
+    JAX gets both from its functional keys. No generator state is read or
+    set, so the same code runs inside a CUDA graph capture, where each
+    replay's forward draws new values onto the tape in the graph's pool.
+    The tape holds a byte per dropped element of the call and 8 bytes per
+    seed until the backward frees it. Outside a capture the checkpoint also
+    replays torch's default generators, as it does by default; a capture
+    cannot read them, and no tower draws from them."""
     if policy not in ("full", "dots"):
         raise ValueError(f"remat policy {policy!r}; valid: full, dots")
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        # the recompute sets the generators' states back to the tower's
-        # entry, which a capture cannot read or set
-        raise RuntimeError("model.remat does not run inside a CUDA graph: "
-                           "train it with solver.steps_per_dispatch=1")
-    gens = _streams(module)
-    entry = [g.get_state() for g in gens]
+    tape = _Tape()
     stats = [t for m in module.modules()
              if m.training and getattr(m, "running_mean", None) is not None
              for t in (m.running_mean, m.running_var,
@@ -182,10 +232,13 @@ def remat(module: nn.Module, fn, *args, policy: str = "full"):
                 _dots_policy)
         else:
             fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
-        return fwd, _Replay(gens, entry, stats, rec)
+        return _Taping(tape, fwd), _Replay(tape, stats, rec)
 
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
     return _ckpt.checkpoint(fn, *args, use_reentrant=False,
-                            context_fn=contexts)
+                            context_fn=contexts,
+                            preserve_rng_state=not capturing)
 
 
 @torch.no_grad()

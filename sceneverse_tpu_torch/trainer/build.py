@@ -71,12 +71,19 @@ The JAX package's dispatch paths (its ``trainer/build.py:44-124,
   * fused eval (``eval_fused``): the forward and the (value, count) sums of
     ``solver.eval_steps_per_dispatch`` same-signature eval batches in one
     replay, the tail batch of a ``drop_last=False`` loader in its own graph,
-    the sums handed to ``BaseEvaluator.update_sums``; in a world of more
-    than one rank the group runs without a graph.
+    the sums handed to ``BaseEvaluator.update_sums``.
 A replay does not run the kernel wrappers, so it adds the launches the
-capture recorded to ``ops/_build.LAUNCHES`` itself. With K > 1 a world of
-more than one rank raises: gloo cannot be captured, and NCCL graphs over
-several cards wait for a machine that has them.
+capture recorded to ``ops/_build.LAUNCHES`` itself. ``model.remat`` runs
+inside a graph (``modules/utils.py::remat`` replays the forward's draws from
+a tape, no generator state is read or set). In a world of more than one
+rank (dp x mp) the K micro-steps of a chunk, and a fused eval group, run in
+a row without a graph, the same kernels as one rank's replay: each rank
+stacks its own rows of the K batches (its loader's share, JAX's
+``shard_batch(..., axis=1)``), each micro-step sums the gradients over the
+dp group and broadcasts the mp replicas' as a single step does, and the
+stacked (value, count) pairs reach ``flush_train_logs`` as K rows. gloo
+cannot be captured, and a graph of NCCL collectives over several cards
+waits for a machine that has them.
 """
 
 from __future__ import annotations
@@ -398,14 +405,6 @@ class BaseTrainer:
             solver.get("steps_per_dispatch", 1) or 1))
         self.eval_steps_per_dispatch = max(1, int(solver.get(
             "eval_steps_per_dispatch", self.steps_per_dispatch) or 1))
-        if self.steps_per_dispatch > 1 and mesh.world() > 1:
-            raise ValueError(
-                f"solver.steps_per_dispatch={self.steps_per_dispatch} needs "
-                f"a world of 1: the {torch.distributed.get_backend()} "
-                "process group of "
-                f"{mesh.world()} ranks cannot run in a CUDA graph here (gloo "
-                "cannot be captured; NCCL graphs over several cards are not "
-                "ported yet)")
         # JAX build.py:249-252: one device, and the key not "off"
         self._packed = (mesh.world() == 1 and str(solver.get(
             "packed_transfer", "auto")).lower() != "off")
@@ -577,19 +576,25 @@ class BaseTrainer:
         """``len(data_dicts)`` micro-steps of stacked host batches in one
         dispatch (JAX ``trainer/build.py:300-378``): on the card one replay
         of a CUDA graph keyed by (signature, K, metrics, accumulation
-        phase), on the CPU the same step function K times. Returns
-        (metrics, losses) of stacked (K,) device tensors, which
-        ``flush_train_logs`` takes as K rows."""
+        phase), on the CPU and in a world of more than one rank the same
+        step function K times. Returns (metrics, losses) of stacked (K,)
+        device tensors (a metric's (value, count) pair as a pair of them
+        over a dp world), which ``flush_train_logs`` takes as K rows."""
         k = len(data_dicts)
         unpack = self._stage([_arrays(d) for d in data_dicts])
+
+        def stack(vals):
+            if isinstance(vals[0], tuple):  # (value, count) pairs
+                return tuple(stack([v[i] for v in vals])
+                             for i in range(len(vals[0])))
+            return torch.stack([_scalar(v, self.device) for v in vals])
 
         def steps():
             batches = unpack()
             rows = [self.train_forward_backward(
                 {n: v[j] for n, v in batches.items()}, metrics_fn)
                 for j in range(k)]
-            return tuple({n: torch.stack([_scalar(r[i][n], self.device)
-                                          for r in rows])
+            return tuple({n: stack([r[i][n] for r in rows])
                           for n in rows[0][i]} for i in (0, 1))
 
         key = ("train", _batch_signature(data_dicts[0]), k, id(metrics_fn),

@@ -5,7 +5,11 @@ Each train step's losses and metrics stay device scalars; every
 ``solver.log_every`` steps (default 10) ``flush_train_logs`` fetches them in
 one copy and writes one row per step. With ``profile.enabled`` the first
 ``profile.steps`` steps of epoch 0 run under ``utils/profiling.py::trace``
-and end that epoch, as in the JAX package. Every epoch saves
+and end that epoch, as in the JAX package; a window whose trace holds fewer
+of the port's kernels than it launched (``TraceWindow.complete`` false) is
+traced again over the next ``profile.steps`` steps, up to PROFILE_WINDOWS
+windows, and the epoch ends after the first complete one (a window of
+steps cannot run twice); ``profile_windows`` keeps every window traced. Every epoch saves
 ``latest.pth``, ``best.pth`` when the val metric improved and
 ``ckpt_N.pth`` every ``solver.epochs_per_save`` epochs; ``run`` drains the
 asynchronous saves before it returns.
@@ -13,7 +17,8 @@ asynchronous saves before it returns.
 The loops are the JAX package's (``default_trainer.py:44-129``): the
 train loop takes ``solver.steps_per_dispatch`` = K batches a chunk and
 runs a whole chunk through ``train_forward_backward_k`` (one CUDA graph
-replay on the card) when the train evaluator's metrics fuse into the step;
+replay on the card in a world of 1, the K steps in a row over a dp x mp
+world) when the train evaluator's metrics fuse into the step;
 a tail chunk of fewer than K batches, and every chunk when they do not
 fuse, takes the single-step path. The eval loop sends a split through
 ``eval_fused`` when its evaluator's metrics fuse, else through the eager
@@ -29,12 +34,15 @@ from sceneverse_tpu_torch.parallel import mesh
 from sceneverse_tpu_torch.trainer.build import TRAINER_REGISTRY, BaseTrainer
 from sceneverse_tpu_torch.utils.profiling import trace
 
+PROFILE_WINDOWS = 3  # profile windows tried before an incomplete trace raises
+
 
 @TRAINER_REGISTRY.register()
 class DefaultTrainer(BaseTrainer):
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device=device)
         self.best_metric = -1
+        self.profile_windows = []  # the TraceWindows of profile.enabled
 
     def _train_evaluator(self):
         return self.evaluator
@@ -73,8 +81,12 @@ class DefaultTrainer(BaseTrainer):
             self.global_step += 1
             pending.append((self.global_step, {**losses, **metrics}, t0))
 
-        with trace(f"{exp_dir}/profile", enabled=profiling and n > 0):
-            i, it = 0, iter(loader)
+        it = iter(loader)
+
+        def steps(i, end):
+            """Chunks of ``spd`` batches from step ``i`` until the loader
+            ends or, with ``end``, the chunk that reaches step ``end``; the
+            pending rows flushed at the end. Returns the steps done."""
             while True:
                 chunk = [b for _, b in zip(range(spd), it)]
                 if not chunk:
@@ -95,10 +107,30 @@ class DefaultTrainer(BaseTrainer):
                 if sum(e[3] if len(e) == 4 else 1
                        for e in pending) >= log_every:
                     self.flush_train_logs(pending)
-                    pending = []
-                if profiling and i >= self.profile_steps:
+                    pending.clear()
+                if end is not None and i >= end:
                     break
             self.flush_train_logs(pending)
+            pending.clear()
+            return i
+
+        if not (profiling and n > 0):
+            steps(0, None)
+            return
+        i, self.profile_windows = 0, []
+        for window_no in range(1, PROFILE_WINDOWS + 1):
+            with trace(f"{exp_dir}/profile") as window:
+                i = steps(i, i + self.profile_steps)
+            self.profile_windows.append(window)
+            if window.complete or i >= n:
+                return
+            print(f"[profile] window {window_no} traced fewer kernels than "
+                  f"the port launched ({window.missing}); tracing the next "
+                  f"{self.profile_steps} steps", flush=True)
+        raise RuntimeError(f"profile.enabled: {PROFILE_WINDOWS} "
+                           "torch.profiler windows in a row traced fewer "
+                           f"kernels than the port launched ({window.path}: "
+                           f"{window.missing})")
 
     def _eval_loop(self, split: str, mode: str):
         """Every loader of the split through its evaluator (one evaluator

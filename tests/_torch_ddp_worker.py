@@ -54,6 +54,13 @@ ROUTES = {
                         {"SCENEVERSE_BN_FOLD": "on"}),
     "unfrozen_fused": (["model.vision.args.freeze=False"], FUSED_ENV),
     "objcls": ([], {}),
+    # K steps per dispatch: one chunk of 2 steps; two chunks of 3 micro-steps
+    # at gradient_accumulation_steps 2 (phases 0 and 1, three updates)
+    "frozen_k2": (["data.synthetic_size=8", "solver.steps_per_dispatch=2"],
+                  {}),
+    "frozen_k3_accum": (["data.synthetic_size=24",
+                         "solver.steps_per_dispatch=3",
+                         "solver.gradient_accumulation_steps=2"], {}),
 }
 # the ObjCls pretraining route (tests/test_trainer_e2e.py's config at
 # clip width): the PointNet++ alone, train-mode BatchNorm, the model whose
@@ -111,10 +118,12 @@ def _cfg(over):
 
 # ------------------------------------------------------------------ routes
 def route_step(name, exp_dir, weights=None):
-    """One train step of ``DefaultTrainer.train_step`` on the route: the
-    logged (global) losses and metrics, the gradients the optimizer took
-    (summed over the ranks, then clipped), the parameters after the AdamW
-    step and the buffers (BatchNorm running statistics)."""
+    """One epoch of ``DefaultTrainer.train_step`` on the route (one step, or
+    the K-step routes' chunks): the logged (global) losses and metrics of
+    every step, the gradients the optimizer took last (summed over the
+    ranks, then clipped), the parameters after the AdamW steps, the buffers
+    (BatchNorm running statistics), the chunk lengths that went through
+    ``train_forward_backward_k`` and the optimizer steps."""
     from sceneverse_tpu_torch.ckpt.convert import apply_state_dict
     from sceneverse_tpu_torch.trainer.build import build_trainer
 
@@ -134,11 +143,16 @@ def route_step(name, exp_dir, weights=None):
             assert not unexpected and all(
                 k.endswith("num_batches_tracked") for k in missing)
         no_dropout(t.model)
+        chunks = []
+        real = t.train_forward_backward_k
+        t.train_forward_backward_k = lambda d, f: chunks.append(len(d)) or \
+            real(d, f)
         t.train_step(0)
-    assert t.global_step == 1
+    assert t.global_step == len(t.data_loaders["train"])
     lrs = {id(p): g["base_lr"] for g in t.optimizer.opt.param_groups
            for p in g["params"]}
-    return {"row": t.history["train"][0],
+    return {"row": t.history["train"][0], "rows": t.history["train"],
+            "chunks": chunks, "updates": t.optimizer.step_count,
             "lr": {n: lrs.get(id(p)) for n, p in t.model.named_parameters()},
             "grad": {n: p.grad.clone() for n, p in t.model.named_parameters()
                      if p.grad is not None},
@@ -350,10 +364,10 @@ def run(r, n_world, init_file, spec):
                                                out / "stores")
     res["entry"] = entry_runs(out / "entry")
     for name in ("unfrozen", "unfrozen_folded", "unfrozen_fused", "objcls",
-                 "frozen"):
-        # the frozen route takes the JAX model's weights, which the test
+                 "frozen", "frozen_k2", "frozen_k3_accum"):
+        # the frozen routes take the JAX model's weights, which the test
         # process writes while the cases above run
-        weights = Path(spec["weights"]) if name == "frozen" else None
+        weights = Path(spec["weights"]) if name.startswith("frozen") else None
         while weights is not None and not weights.exists():
             time.sleep(0.1)
         res["routes"][name] = route_step(name, out / f"route_{name}",

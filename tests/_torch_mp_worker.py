@@ -62,20 +62,26 @@ CASES = {
     "dropout": (2, []),
 }
 HEAD = "pretrain_head.lm_pred_head."
+# K = 2 steps per dispatch over a world of 2 at (dp 1, mp 2): two train
+# batches, one chunk; the ranks run it after the world of 4, ranks 0 and 1
+# in a process group of their own
+K2 = {"dp1_mp2_k2": (2, [f"data.synthetic_size={2 * BATCH}",
+                         "solver.steps_per_dispatch=2"])}
 
 
 def overrides(case, mp, exp_dir, weights):
-    return SMALL + CASES[case][1] + [
+    return SMALL + {**CASES, **K2}[case][1] + [
         f"parallel.mp={mp}", f"exp_dir={exp_dir}",
         f"pretrain_ckpt_path={weights}"]
 
 
 def step(case, mp, exp_dir, weights, eval_val=True):
     """One ``train_step`` (and the val pass) of the case at ``mp``: the
-    logged losses, the clipped gradients and the parameters after AdamW
-    with the split head gathered whole, this rank's rows of the head, the
-    replicated gradients the mp broadcast was handed, the dropout streams'
-    states and the val metrics; and the trainer."""
+    logged losses of its steps, the clipped gradients of the last and the
+    parameters after AdamW with the split head gathered whole, this rank's
+    rows of the head, the replicated gradients the mp broadcast was handed
+    last, the dropout streams' states, the chunk lengths that went through
+    ``train_forward_backward_k`` and the val metrics; and the trainer."""
     from sceneverse_tpu_torch.parallel import mesh, vocab
     from sceneverse_tpu_torch.trainer.build import build_trainer
 
@@ -90,11 +96,15 @@ def step(case, mp, exp_dir, weights, eval_val=True):
         bcast(tensors)
 
     mesh.broadcast_flat_mp = keep
+    chunks = []
+    real = t.train_forward_backward_k
+    t.train_forward_backward_k = lambda d, f: chunks.append(len(d)) or real(
+        d, f)
     try:
         t.train_step(0)
     finally:
         mesh.broadcast_flat_mp = bcast
-    assert t.global_step == 1
+    assert t.global_step == len(t.data_loaders["train"])
 
     def whole(x, p):  # gathered whole when p is split
         return vocab.full_tensor(x) if vocab.is_split(p) else x.detach()
@@ -103,7 +113,8 @@ def step(case, mp, exp_dir, weights, eval_val=True):
     lrs = {id(p): g["base_lr"] for g in t.optimizer.opt.param_groups
            for p in g["params"]}
     out = {
-        "row": t.history["train"][0],
+        "row": t.history["train"][0], "rows": t.history["train"],
+        "chunks": chunks,
         "lr": {n: lrs.get(id(p)) for n, p in named},
         "moments": {n: {k: whole(v, p).clone() for k, v in m.items()}
                     for n, (p, m) in moments(t).items()},
@@ -218,5 +229,14 @@ def run(r, n_world, init_file, spec):
     _wait(spec["mp1_ckpt"])  # written at mp 1 by the test process
     res["resumed"] = resumed(2, out / "resume_w4", spec["weights"],
                              spec["mp1_ckpt"])
-    torch.save(res, out / f"rank{r}.pt")
     mesh.shutdown()
+    if r < 2:  # (dp 1, mp 2): ranks 0 and 1 in a world of 2 of their own
+        os.environ.update({"RANK": str(r), "WORLD_SIZE": "2"})
+        assert mesh.init_from_env("gloo",
+                                  init_method=f"file://{init_file}_w2")
+        for case, (mp, _) in K2.items():
+            res["cases"][case], t = step(case, mp, out / f"{case}_w2",
+                                         spec["weights"], eval_val=False)
+            del t
+        mesh.shutdown()
+    torch.save(res, out / f"rank{r}.pt")

@@ -51,12 +51,28 @@ points, global batch 4, dropout off, ``SCENEVERSE_FUSED_MHA=off``).
      over all gradients, held at REL). Parameters after one AdamW step:
      Adam normalises such an element to a different fraction of its step,
      so within Adam's bound of 2 lr (1.83 on one element, held at 0.25).
+     K steps per dispatch (``solver.steps_per_dispatch``) over the two
+     ranks, the frozen route: one chunk of K = 2 steps, and two chunks of K
+     = 3 micro-steps at ``gradient_accumulation_steps`` 2 (chunks at phases
+     0 and 1, three updates). Each chunk goes through
+     ``train_forward_backward_k`` on both ranks (its K steps in a row: no
+     graph over gloo), and every step's losses and metrics, the last
+     gradients and the parameters after the updates are held to the world
+     of 1's K-step run as the frozen route is (parameters in units of lr
+     times the updates).
   2. The frozen route equals JAX's dp=2 mesh step (``tests/test_multichip.py``'s
      pattern) at test_multichip's tolerances: loss within 1e-4, parameters
      within atol 5e-5, rtol 1e-4. JAX's frozen PointNet++ is replaced by
      the port's features on the same batch (as in
      ``test_torch_finetune_slice.py``: the interpret-mode SA trace would
      double this file's time; its parity is ``test_torch_slice.py``'s).
+     The K = 2 route equals JAX's K-step executable on the dp=2 mesh
+     (``BaseTrainer._build_train_k``: one ``lax.scan`` over the stacked
+     batches, sharded along their batch axis as the JAX trainer shards
+     them) at the same tolerances, each step's losses and the parameters
+     after both steps; there the PointNet++ stands in with the port's
+     features of each batch, picked by comparing the input with the first
+     batch's.
   3. Losses whose denominators depend on the data (``lm_cls_loss``,
      ``_masked_obj_ce``), the fixed-count means and the contrastive losses
      through ``all_gather_rows``, with rank 0's rows masking far more than
@@ -104,6 +120,9 @@ GPS_ROW = (("total_loss", "lm_cls_loss", "TextObjWithinBatch",
            50)
 ROW = {route: GPS_ROW for route in ROUTES}
 ROW["objcls"] = (("total_loss", "obj_cls_loss"), ("accuracy",), 30)
+# the K-step routes: chunk lengths through train_forward_backward_k and
+# optimizer steps
+K_ROUTES = {"frozen_k2": ([2], 2), "frozen_k3_accum": ([3, 3], 3)}
 # the ObjCls route's gradients (relative L2) and parameters (in units of
 # lr), against a ReLU decision that lands the other way (module docstring)
 OBJCLS_TOL = {"grad_l2": 1e-2, "param_lr": 2.0}
@@ -129,6 +148,57 @@ class _Features(nnx.Module):
 
     def __call__(self, x):
         return self.feats[...]
+
+
+class _TwoFeatures(nnx.Module):
+    """Stands in for the frozen JAX PointNet++ over two batches: the first
+    batch's features when the input is the first batch's, else the
+    second's."""
+
+    def __init__(self, x0, f0, f1):
+        self.x0 = nnx.Variable(jnp.asarray(x0))
+        self.f0 = nnx.Variable(jnp.asarray(f0))
+        self.f1 = nnx.Variable(jnp.asarray(f1))
+
+    def __call__(self, x):
+        return jnp.where(jnp.all(x == self.x0[...]), self.f0[...],
+                         self.f1[...])
+
+
+def _jax_dp2_k(cfg, model, batches):
+    """``len(batches)`` GPS train steps through the JAX trainer's K-step
+    executable (``BaseTrainer._build_train_k``) on JAX's dp=2 mesh, the
+    stacked batches sharded along axis 1 (``shard_batch(..., axis=1)``,
+    as its ``train_forward_backward_k``): (per-step losses, port-named
+    params)."""
+    import types
+
+    from sceneverse_tpu.optim.build import build_optim
+    from sceneverse_tpu.parallel.mesh import (mesh_from_cfg, shard_batch,
+                                              shard_module)
+    from sceneverse_tpu.trainer.build import BaseTrainer, _stack_batches
+    from sceneverse_tpu_torch.ckpt.convert import from_jax_params
+
+    mesh = mesh_from_cfg(cfg)
+    assert mesh.shape == {"dp": 2, "mp": 1}
+    for _, m in nnx.iter_modules(model):
+        if isinstance(m, nnx.Dropout):
+            m.rate = 0.0
+    model.train()
+    loss_mod, tx, _, _ = build_optim(cfg, model, total_steps=len(batches))
+    optimizer = nnx.Optimizer(model, tx, wrt=nnx.Param)
+    shard_module(model, mesh)
+    shard_module(optimizer, mesh)
+    host = types.SimpleNamespace(model=model, optimizer=optimizer,
+                                 loss=loss_mod, _train_state=None)
+    train_k = BaseTrainer._build_train_k(host, lambda d: {}, len(batches))
+    stacked = shard_batch(_stack_batches(batches), mesh, axis=1)
+    with mesh:
+        _, losses, state = train_k(host._train_state, stacked)
+        jax.block_until_ready(losses)
+    model, _ = nnx.merge(host._graphdef, state)
+    return ({k: np.asarray(v) for k, v in losses.items()},
+            from_jax_params(_flat(nnx.state(model, nnx.Param))))
 
 
 def _jax_dp2_step(cfg, model, batch):
@@ -197,13 +267,14 @@ def ddp(tmp_path_factory):
             # the frozen route's on every rank
             jcfg = jload(W.CFG, W.STEP + ["num_gpu=2"])
             jm = jbuild(jcfg, rngs=nnx.Rngs(0))
+            jm_k = nnx.clone(jm)  # the same weights, for the K-step run
             weights = from_jax_params(_flat(nnx.state(jm, nnx.Not(
                 nnx.RngState))))
             torch.save(weights, base / "weights.tmp")
             os.replace(base / "weights.tmp", base / "weights.pt")
             one = {"routes": {name: W.route_step(
                 name, base / f"one_{name}",
-                spec["weights"] if name == "frozen" else None)
+                spec["weights"] if name.startswith("frozen") else None)
                 for name in ROUTES}}
             one["losses"] = W.loss_cases()
             one["eval"] = W.eval_record(
@@ -212,19 +283,37 @@ def ddp(tmp_path_factory):
             one["materialized"] = W.materialized_batches(tree,
                                                          base / "one_stores")
             tcfg = W._cfg(W.STEP)
-            order = next(iter(build_dataloader(tcfg, "train")))["data_idx"]
-            ds = get_dataset(jcfg, "train")
-            batch = {k: v for k, v in numpy_collate(
-                [ds[int(i)] for i in order]).items()
-                if isinstance(v, np.ndarray)}
             tm = tbuild(tcfg)
             apply_state_dict(tm, weights)
-            with torch.no_grad():
-                fts = torch.from_numpy(batch["obj_fts"])
-                feats = tm.point_encoder.point_feature_extractor(
-                    fts.reshape(-1, *fts.shape[2:])).numpy()
+
+            def host_batches(over):
+                """The JAX dataset's items in the port's train-loader
+                order, with the port's PointNet++ features of each."""
+                out = []
+                for b in build_dataloader(W._cfg(W.STEP + over), "train"):
+                    ds = get_dataset(jload(W.CFG, W.STEP + over
+                                           + ["num_gpu=2"]), "train")
+                    batch = {k: v for k, v in numpy_collate(
+                        [ds[int(i)] for i in b["data_idx"]]).items()
+                        if isinstance(v, np.ndarray)}
+                    with torch.no_grad():
+                        fts = torch.from_numpy(batch["obj_fts"])
+                        feats = tm.point_encoder.point_feature_extractor(
+                            fts.reshape(-1, *fts.shape[2:])).numpy()
+                    out.append((batch, feats))
+                return out
+
+            ((batch, feats),) = host_batches([])
             jm.point_encoder.point_feature_extractor = _Features(feats)
             one["jax"] = _jax_dp2_step(jcfg, jm, batch)
+            k_over = W.ROUTES["frozen_k2"][0]
+            (b0, f0), (b1, f1) = host_batches(k_over)
+            fts = b0["obj_fts"]
+            jm_k.point_encoder.point_feature_extractor = _TwoFeatures(
+                fts.reshape(-1, *fts.shape[2:]), f0, f1)
+            one["jax_k2"] = _jax_dp2_k(
+                jload(W.CFG, W.STEP + k_over + ["num_gpu=2"]), jm_k,
+                [b0, b1])
         finally:
             torch.set_num_threads(threads)
             for p in procs:
@@ -252,17 +341,34 @@ def test_two_ranks_ran(ddp):
 @pytest.mark.parametrize("route", ROUTES)
 def test_route_losses_match_one_rank(ddp, route):
     one, ranks, _ = ddp
-    want = one["routes"][route]["row"]
+    rows = one["routes"][route]["rows"]
     tol = FUSED_TOL["loss"] if route == "unfrozen_fused" else REL
     for r in ranks:
-        got = r["routes"][route]["row"]
-        assert set(got) == set(want)
-        for k in ROW[route][0]:
-            assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), k
+        assert len(r["routes"][route]["rows"]) == len(rows)
+        for step, (got, want) in enumerate(zip(r["routes"][route]["rows"],
+                                               rows)):
+            assert set(got) == set(want)
+            for k in ROW[route][0]:
+                assert abs(got[k] - want[k]) <= tol * max(
+                    1.0, abs(want[k])), (step, k)
     # the train metrics: the global batch's (value, count) pairs summed
-    for k in ROW[route][1]:
-        assert ranks[0]["routes"][route]["row"][k] == pytest.approx(
-            want[k], abs=1e-6), k
+    for step, want in enumerate(rows):
+        for k in ROW[route][1]:
+            assert ranks[0]["routes"][route]["rows"][step][k] == \
+                pytest.approx(want[k], abs=1e-6), (step, k)
+
+
+@pytest.mark.parametrize("route", K_ROUTES)
+def test_k_routes_dispatch_chunks_on_every_rank(ddp, route):
+    """Each chunk of the K-step routes took ``train_forward_backward_k``
+    in both worlds, with the updates of single steps."""
+    one, ranks, _ = ddp
+    chunks, updates = K_ROUTES[route]
+    for res in [one] + ranks:
+        got = res["routes"][route]
+        assert got["chunks"] == chunks
+        assert got["updates"] == updates
+        assert len(got["rows"]) == sum(chunks)
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -286,7 +392,7 @@ def test_route_summed_gradients_match_one_rank(ddp, route):
             # gradient is zero (the key projections' biases)
             assert (got[n] - want[n]).abs().max().item() <= \
                 REL * want[n].abs().max().item() + 1e-7 * gmax, n
-    if route != "frozen":  # the PointNet++ trains
+    if not route.startswith("frozen"):  # the PointNet++ trains
         assert any("point_feature_extractor." in n for n in want)
 
 
@@ -295,6 +401,7 @@ def test_route_params_after_adamw_match_one_rank(ddp, route):
     one, ranks, _ = ddp
     want = one["routes"][route]["param"]
     lr = one["routes"][route]["lr"]
+    updates = one["routes"][route]["updates"]
     a, b = (r["routes"][route]["param"] for r in ranks)
     fused = route == "unfrozen_fused"
     chaotic = fused or route == "objcls"
@@ -305,7 +412,7 @@ def test_route_params_after_adamw_match_one_rank(ddp, route):
             assert torch.equal(a[n], want[n]), n
             continue
         units = ((a[n] - want[n]).abs()
-                 - REL * want[n].abs().max()) / lr[n]
+                 - REL * want[n].abs().max()) / (lr[n] * updates)
         assert units.max().item() <= (
             FUSED_TOL["param_lr"] if fused else OBJCLS_TOL["param_lr"]
             if chaotic else 0.25), (n, units.max().item())
@@ -327,7 +434,7 @@ def test_route_batchnorm_statistics_match_one_rank(ddp, route):
     for n in stats:
         exact = route != "unfrozen_fused" or n.startswith(EXACT_STATS)
         assert _rel(a[n], want[n]) <= (REL if exact else FUSED_TOL["stat"]), n
-    if route != "frozen":  # train-mode BatchNorm moved them from (0, 1)
+    if not route.startswith("frozen"):  # train-mode BatchNorm moved them
         assert all(want[n].abs().max() > 0 for n in stats
                    if n.endswith("running_mean"))
 
@@ -343,6 +450,26 @@ def test_frozen_route_matches_jax_dp2_step(ddp):
                                        want.numpy(), atol=5e-5, rtol=1e-4,
                                        err_msg=n)
         assert len(jparams) > 50
+
+
+def test_frozen_k2_route_matches_jax_dp2_k_steps(ddp):
+    """Both ranks' K = 2 chunk against JAX's K-step executable on its dp=2
+    mesh: each step's logged losses within 1e-4, the parameters after the
+    two AdamW steps within atol 5e-5, rtol 1e-4 (item 2)."""
+    one, ranks, _ = ddp
+    jlosses, jparams = one["jax_k2"]
+    assert len(jparams) > 50
+    for r in ranks:
+        route = r["routes"]["frozen_k2"]
+        assert route["chunks"] == [2]
+        for k in ROW["frozen_k2"][0]:
+            got = [row[k] for row in route["rows"]]
+            np.testing.assert_allclose(got, jlosses[k], rtol=0, atol=1e-4,
+                                       err_msg=k)
+        for n, want in jparams.items():
+            np.testing.assert_allclose(route["param"][n].numpy(),
+                                       want.numpy(), atol=5e-5, rtol=1e-4,
+                                       err_msg=n)
 
 
 @pytest.mark.parametrize("name", W.LOSSES)

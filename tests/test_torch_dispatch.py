@@ -26,11 +26,13 @@ must equal the single-step loop exactly; on the card they are CUDA graphs
     packages refuse;
   * the device LR schedule against the JAX package's (optax's) schedule,
     and the optimizer's steps taking it;
-  * ``steps_per_dispatch`` > 1 over a gloo world of 2 raises.
+  * ``model.remat=true`` at K = 2 under "full" and under "dots" against the
+    JAX trainer's ``model.remat=true`` K = 2 run (its ``nnx.remat`` inside
+    the scan), as the K = 2 rows above: a chunk of 2 and a tail step,
+    dropout off, the rows within ROW_TOL and the LRs within 1e-6.
+K = 2 over a data-parallel world is ``tests/test_torch_ddp.py``'s (the
+gloo ranks' K-step routes) and ``tests/test_torch_mp.py``'s (dp 1 x mp 2).
 """
-
-import multiprocessing
-import os
 
 import numpy as np
 import pytest
@@ -184,10 +186,10 @@ def _no_dropout(jm, tm):
             m.p = 0.0
 
 
-@pytest.fixture(scope="module")
-def both(tmp_path_factory):
-    """Both trainers' K = 2 epoch (one chunk, one tail step) and the fused
-    eval of both evaluators on the val split (2, 2, 2, 1)."""
+def _k2_epochs(base, over):
+    """Both trainers (JAX weights carried over, dropout off) through their
+    K = 2 epoch: (each side's logged rows, whether JAX took its scan path,
+    the two trainers)."""
     from flax import nnx
 
     from sceneverse_tpu.config import load_config as jload
@@ -196,25 +198,47 @@ def both(tmp_path_factory):
     from sceneverse_tpu_torch.config import load_config as tload
     from sceneverse_tpu_torch.trainer.build import build_trainer as tbuild
 
-    base = tmp_path_factory.mktemp("dispatch")
+    jt = jbuild(jload(CFG, OVER + over + [f"exp_dir={base / 'jax'}"]))
+    tt = tbuild(tload(CFG, OVER + over + [f"exp_dir={base / 'torch'}"]),
+                device="cpu")
+    missing, unexpected = load_jax_params(
+        tt.model, _flat(nnx.state(jt.model, nnx.Not(nnx.RngState))))
+    assert missing == [] and unexpected == []
+    _no_dropout(jt.model, tt.model)
     out = {}
+    for name, t in (("jax", jt), ("torch", tt)):
+        rows = []
+        t.logger.log = lambda row, step=None, _r=rows: _r.append(
+            (step, dict(row)))
+        t.train_step(0)
+        out[name] = rows
+    out["jax_k"] = jt._compiled_train_k is not None
+    return out, jt, tt
+
+
+def _match_k2_rows(res):
+    jrows, trows = res["jax"], res["torch"]
+    assert res["jax_k"]  # JAX took its scan path for the chunk
+    assert [s for s, _ in trows] == [s for s, _ in jrows] == [1, 2, 3]
+    for i, ((_, j), (_, t)) in enumerate(zip(jrows, trows)):
+        assert set(t) == set(j)
+        for k, want in j.items():
+            if "/lr/" in k:
+                assert t[k] == pytest.approx(want, rel=1e-6, abs=0.0), k
+            else:
+                assert abs(t[k] - want) <= ROW_TOL * max(1.0, abs(want)), (
+                    i, k, t[k], want)
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """Both trainers' K = 2 epoch (one chunk, one tail step) and the fused
+    eval of both evaluators on the val split (2, 2, 2, 1)."""
+    base = tmp_path_factory.mktemp("dispatch")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SCENEVERSE_PALLAS_INTERPRET", "1")
         mp.setenv("SCENEVERSE_FUSED_MHA", "off")
-        jt = jbuild(jload(CFG, OVER + [f"exp_dir={base / 'jax'}"]))
-        tt = tbuild(tload(CFG, OVER + [f"exp_dir={base / 'torch'}"]),
-                    device="cpu")
-        missing, unexpected = load_jax_params(
-            tt.model, _flat(nnx.state(jt.model, nnx.Not(nnx.RngState))))
-        assert missing == [] and unexpected == []
-        _no_dropout(jt.model, tt.model)
-        for name, t in (("jax", jt), ("torch", tt)):
-            rows = []
-            t.logger.log = lambda row, step=None, _r=rows: _r.append(
-                (step, dict(row)))
-            t.train_step(0)
-            out[name] = rows
-        out["jax_k"] = jt._compiled_train_k is not None
+        out, jt, tt = _k2_epochs(base, [])
         for name in ("train", "val"):
             res = {}
             for side, t in (("jax", jt), ("torch", tt)):
@@ -234,17 +258,22 @@ def both(tmp_path_factory):
 
 
 def test_k2_log_rows_match_jax(both):
-    jrows, trows = both["jax"], both["torch"]
-    assert both["jax_k"]  # JAX took its scan path for the chunk
-    assert [s for s, _ in trows] == [s for s, _ in jrows] == [1, 2, 3]
-    for i, ((_, j), (_, t)) in enumerate(zip(jrows, trows)):
-        assert set(t) == set(j)
-        for k, want in j.items():
-            if "/lr/" in k:
-                assert t[k] == pytest.approx(want, rel=1e-6, abs=0.0), k
-            else:
-                assert abs(t[k] - want) <= ROW_TOL * max(1.0, abs(want)), (
-                    i, k, t[k], want)
+    _match_k2_rows(both)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_k2_remat_rows_match_jax_remat(tmp_path, policy):
+    """``model.remat=true`` under ``policy``: the port's K = 2 epoch, whose
+    towers recompute in the backward, against JAX's, whose ``nnx.remat``
+    runs inside the scan."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SCENEVERSE_PALLAS_INTERPRET", "1")
+        mp.setenv("SCENEVERSE_FUSED_MHA", "off")
+        res, jt, tt = _k2_epochs(tmp_path, [
+            "model.remat=true", f"model.remat_policy={policy}"])
+    assert tt.model.remat == {"language", "grounding"}
+    assert tt.model.remat_policy == policy
+    _match_k2_rows(res)
 
 
 @pytest.mark.parametrize("name", ["train", "val"])  # PretrainEval, ScanRefer
@@ -334,37 +363,3 @@ def test_optimizer_steps_take_the_device_lr(seven):
     with torch.no_grad():  # the shared trainer's parameters as they were
         for p, v in saved.items():
             p.copy_(v)
-
-
-# ------------------------------------------------------------ gloo
-def _gloo_rank(r, init_file, exp_dir, out):
-    os.environ.update({"RANK": str(r), "WORLD_SIZE": "2",
-                       "LOCAL_RANK": str(r)})
-    torch.set_num_threads(1)
-    from sceneverse_tpu_torch.parallel import mesh
-
-    assert mesh.init_from_env("gloo", init_method=f"file://{init_file}")
-    try:
-        _port_trainer(exp_dir, "dataloader.batchsize=4",
-                      "solver.steps_per_dispatch=2")
-        msg = "built"
-    except ValueError as e:
-        msg = str(e)
-    with open(f"{out}{r}", "w") as f:
-        f.write(msg)
-    mesh.shutdown()
-
-
-def test_steps_per_dispatch_over_gloo_raises(tmp_path):
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_rank, args=(
-        r, str(tmp_path / "init"), tmp_path / f"exp{r}",
-        str(tmp_path / "msg"))) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(120)
-    assert [p.exitcode for p in procs] == [0, 0]
-    for r in range(2):
-        msg = (tmp_path / f"msg{r}").read_text()
-        assert "gloo" in msg and "steps_per_dispatch=2" in msg, msg

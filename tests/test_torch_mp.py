@@ -36,6 +36,14 @@ engaged, dropout off unless a case says otherwise).
      micro-steps of gradient accumulation holds the head's running mean
      whole.
   6. ``parallel.mp=2`` in a world of 1, and mp = 3 in a world of 4, raise.
+  7. K = 2 steps per dispatch at (dp 1, mp 2): after the world of 4, ranks
+     0 and 1 form a world of 2 of their own and run one chunk of 2 steps
+     through ``train_forward_backward_k`` (in a row: gloo has no graph),
+     each micro-step with its clip, head gather and replicas' broadcast;
+     both steps' losses, the last clipped gradients and the parameters after
+     the two AdamW steps equal the world of 1's K = 2 run as item 3 holds
+     them (parameters in units of lr times the steps), and both ranks hold
+     the same replicated parameters.
 """
 
 import multiprocessing
@@ -55,7 +63,9 @@ HEAD = W.HEAD
 SPLIT = [HEAD + "bias", HEAD + "decoder.weight"]  # named_parameters order
 GRID_CASES = ["dp2_mp2", "dp1_mp4", "v1023"]
 # the world of 1 each grid case is held against
-ONE = {"dp2_mp2": "dp2_mp2", "dp1_mp4": "dp2_mp2", "v1023": "v1023"}
+ONE = {"dp2_mp2": "dp2_mp2", "dp1_mp4": "dp2_mp2", "v1023": "v1023",
+       "dp1_mp2_k2": "dp1_mp2_k2"}
+K2_CASE = "dp1_mp2_k2"
 
 
 def _jax_mesh_step(cfg, model, batch):
@@ -133,9 +143,10 @@ def grid(tmp_path_factory):
             one = {}
             one["accum"] = W.accumulated(1, base / "accum_w1",
                                          spec["weights"])
-            for case in ("dp2_mp2", "v1023"):
+            for case in ("dp2_mp2", "v1023", K2_CASE):
                 one[case], t = W.step(case, 1, base / f"{case}_w1",
-                                      spec["weights"])
+                                      spec["weights"],
+                                      eval_val=case != K2_CASE)
                 if case == "dp2_mp2":
                     t.ckpt_path = base / "mp1_ckpt"
                     t.save("mp1.pth")  # resumed at mp 2 by the ranks
@@ -379,3 +390,57 @@ def test_a_world_mp_does_not_divide_raises(grid):
     _, ranks, _ = grid
     for r in ranks:
         assert "not divisible by parallel.mp=3" in r["mp3_error"]
+
+
+def test_dp1_mp2_k2_took_the_k_path_on_both_ranks(grid):
+    one, ranks, _ = grid
+    assert one[K2_CASE]["chunks"] == [2]
+    for i, r in enumerate(ranks[:2]):
+        got = r["cases"][K2_CASE]
+        assert got["chunks"] == [2]
+        assert got["grid"] == (1, 2, 0, i)
+        assert got["split"] == SPLIT
+        assert len(got["rows"]) == 2
+    assert all(K2_CASE not in r["cases"] for r in ranks[2:])
+
+
+def test_dp1_mp2_k2_losses_match_one_rank(grid):
+    one, ranks, _ = grid
+    rows = one[K2_CASE]["rows"]
+    keys = [k for k in rows[0] if k.endswith("loss")
+            or k in ("TextObjWithinBatch", "TextSceneBetweenBatch")]
+    assert "lm_cls_loss" in keys and len(rows) == 2
+    for r in ranks[:2]:
+        for step, (got, want) in enumerate(zip(r["cases"][K2_CASE]["rows"],
+                                               rows)):
+            for k in keys:
+                assert abs(got[k] - want[k]) <= REL * max(
+                    1.0, abs(want[k])), (step, k)
+
+
+def test_dp1_mp2_k2_clipped_gradients_match_one_rank(grid):
+    """The second step's clipped gradients, the head gathered."""
+    one, ranks, _ = grid
+    want = one[K2_CASE]["grad"]
+    gmax = max(g.abs().max().item() for g in want.values())
+    for r in ranks[:2]:
+        got = r["cases"][K2_CASE]["grad"]
+        assert set(got) == set(want)
+        for n in want:
+            assert (got[n] - want[n]).abs().max().item() <= \
+                REL * want[n].abs().max().item() + 1e-7 * gmax, n
+
+
+def test_dp1_mp2_k2_params_after_adamw_match_one_rank(grid):
+    one, ranks, _ = grid
+    want, lr = one[K2_CASE]["param"], one[K2_CASE]["lr"]
+    a, b = (r["cases"][K2_CASE]["param"] for r in ranks[:2])
+    for n in want:
+        assert torch.equal(a[n], b[n]), n  # the replicas agree
+        if lr[n] is None:
+            assert torch.equal(a[n], want[n]), n
+            continue
+        units = ((a[n] - want[n]).abs()
+                 - REL * want[n].abs().max()) / (lr[n] * 2)
+        assert units.max().item() <= 0.25, (n, units.max().item())
+        assert (units > 0.01).float().mean().item() <= 1e-3, n

@@ -123,6 +123,67 @@ def test_profile_writes_a_trace(tmp_path):
     assert len(list((tmp_path / "exp" / "profile").glob("*.json"))) == 1
 
 
+def test_profile_traces_k_step_chunks(tmp_path):
+    """``profile.enabled`` at ``solver.steps_per_dispatch=2``: the traced
+    steps run as one chunk of 2 through ``train_forward_backward_k`` and a
+    tail step (epoch 0 ends after 3), and one trace holds their ops."""
+    t = _trainer(tmp_path, "profile.enabled=True", "profile.steps=3",
+                 "solver.steps_per_dispatch=2", "data.synthetic_size=12")
+    chunks = []
+    real = t.train_forward_backward_k
+    t.train_forward_backward_k = lambda d, f: chunks.append(len(d)) or real(
+        d, f)
+    t.train_step(0)
+    assert chunks == [2, 2] and t.global_step == 4  # whole chunks
+    traces = list((tmp_path / "exp" / "profile").glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert sum("aten::addmm" in str(e.get("name", "")) for e in events) > 0
+
+
+@pytest.mark.parametrize("empty", [1, 3])
+def test_profile_traces_again_after_an_empty_window(tmp_path, monkeypatch,
+                                                    empty):
+    """A window whose trace holds fewer of the port's kernels than the port
+    launched (``TraceWindow.complete`` false; torch.profiler late in a long
+    process) is traced again over the next ``profile.steps`` steps; after
+    ``PROFILE_WINDOWS`` such windows in a row the run raises. The card's
+    windows stand in here: the first ``empty`` lose one ``fps`` launch of
+    5, or all of them."""
+    import contextlib
+
+    from sceneverse_tpu_torch.trainer import default_trainer
+    from sceneverse_tpu_torch.utils.profiling import (PROFILE_KERNELS,
+                                                      TraceWindow)
+
+    opened = []
+
+    @contextlib.contextmanager
+    def fake_trace(log_dir, enabled=True):
+        w = TraceWindow()
+        yield w
+        opened.append(w)
+        w.launches.update(fps=5, mha_fwd=3)
+        w.traced = {k: 0 for k in PROFILE_KERNELS}
+        w.traced["sv_mha_fwd_kernel"] = 3
+        w.traced["sv_fps_kernel"] = ((4 if len(opened) % 2 else 0)
+                                     if len(opened) <= empty else 5)
+
+    monkeypatch.setattr(default_trainer, "trace", fake_trace)
+    t = _trainer(tmp_path, "profile.enabled=True", "profile.steps=1",
+                 "data.synthetic_size=12")
+    if empty < default_trainer.PROFILE_WINDOWS:
+        t.train_step(0)
+        assert len(opened) == empty + 1 and t.global_step == empty + 1
+        assert t.profile_windows == opened and opened[-1].complete
+        assert opened[0].missing == {"sv_fps_kernel": (4, 5)}
+    else:
+        with pytest.raises(RuntimeError, match="traced fewer kernels"):
+            t.train_step(0)
+        assert len(opened) == default_trainer.PROFILE_WINDOWS
+        assert not any(w.complete for w in t.profile_windows)
+
+
 def test_debug_nans_raises_on_an_injected_nan(tmp_path):
     from sceneverse_tpu_torch.trainer.build import to_device
 
